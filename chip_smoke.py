@@ -37,6 +37,9 @@ Phases, in order; any failure raises and exits nonzero:
    and bounce waves (coarse and fine clusterings): hit flags, occlusion
    and indices equal on every ray, t within 1e-6 relative. Each case must
    launch its kernel.
+   K3 and K7 for each lane count they are built for, at dragon's 4,096-ray
+   primary wave and at a bounce wave of 65,536 - 37 rays with a dead tail
+   (bitwise; K7 as below).
    [fused] K6 bitwise against its plain version (65,536 random rays x 24
    spheres, parity and clean clip; test.scn's spheres) and its time at
    spheres2's table; K7 against its plain version on five waves (a
@@ -50,9 +53,9 @@ Phases, in order; any failure raises and exits nonzero:
    1024x768 clean gillum 4, each against the split route (>= 99% of
    values within 1e-3) and timed beside it, a device profile of both
    dragon frames, lit dragon against split and against the CPU plain path
-   on sampled ids, K7 alone at dragon's bounce chunk; the fused gradient
-   (lit dragon 160x120, 256 ids) against the CPU and against split; a
-   3-step fit through K7.
+   on sampled ids, K7 alone at both waves of dragon's chunk 37; the fused
+   gradient (lit dragon 160x120, 256 ids) against the CPU and against
+   split; a 3-step fit through K7.
 4. goldens: whole frames against the reference binary's goldens (>= 99.5%
    byte-identical pixels; spheres through K1, dragon and test.scn through
    the wavefront) and the 3-sigma stochastic test.
@@ -62,7 +65,9 @@ Phases, in order; any failure raises and exits nonzero:
    not K4; a synthetic-mesh `render`, which must launch K5. Then `render`
    against the plain path (the same code on the CPU) on sampled ids, and
    timings with CUDA events over warm runs: each kernel alone and its
-   plain version at one main-path chunk's shape, and `render` end to end.
+   plain version at one main-path chunk's shape (K3 and K7 at both waves
+   of dragon's chunk 37, each lane count too: `[tune]`), and `render` end
+   to end.
 6. training, each run with the launch counters set to 0 just before and
    read just after: `train.fit` for 3 steps at the 1080p headline (parity
    and clean; finite, decreasing losses, one K1-with-records and one K2
@@ -75,6 +80,10 @@ Phases, in order; any failure raises and exits nonzero:
 7. a JSON line of the kernels (with each one's bound from counted
    operations and bytes), nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
+
+With `--parent-csrc DIR` (an earlier commit's skele_raytracer_tpu_torch/
+csrc, e.g. `git archive` of it unpacked under build/), that tree's K3 and
+K7 are built too and timed in turns with this tree's on the same inputs.
 
 Nothing here imports JAX. Scratch files go under build/smoke/.
 """
@@ -177,6 +186,7 @@ HBM_PEAK = 3.35e12
 MIN_EXACT = 0.995
 T_RTOL = 1e-6  # mesh kernels vs plain: t within this relative error
 CHUNK_RAYS = 1 << 16  # RenderConfig.rays_per_chunk: one wave's rays
+PROFILE_TRIES = 3  # traces of one step before its breakdown is "not measured"
 
 
 def many_sphere_scene(n=128, seed=3, device="cpu"):
@@ -381,6 +391,165 @@ def median_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
     return statistics.median(cuda_ms(fn, reps))
+
+
+def turns_ms(fns, reps=10):
+    """Median milliseconds of each of `fns` on the card, timed in turns
+    (forward, then backward through the list, `reps` rounds; CUDA events
+    around each call) after one warm-up call each."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    samples = [[] for _ in fns]
+    for rnd in range(reps):
+        order = range(len(fns)) if rnd % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            samples[k].append(timed(fns[k])[1])
+    return [statistics.median(x) for x in samples]
+
+
+class ParentKernels:
+    """K3 and K7 as an earlier tree built them: its csrc/culled.cu and
+    csrc/megakernel.cu (a `git archive` of that commit unpacked under the
+    gitignored build/), compiled with this tree's nvcc flags and bound
+    through this tree's wrappers (the C signatures of `culled_nearest` and
+    `fused_shade` have not changed), so that old and new kernels are timed
+    in turns in one run."""
+
+    def __init__(self, csrc):
+        import ctypes
+
+        from skele_raytracer_tpu_torch.ops.cuda import _build
+
+        out = os.path.join(REPO, "build", "parent_kernels")
+        os.makedirs(out, exist_ok=True)
+        procs = {name: subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o",
+             os.path.join(out, f"{name}.so"),
+             os.path.join(csrc, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name in ("culled", "megakernel")}
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0,
+                  f"parent {name}.cu build failed:\n{err}")
+            for line in ptxas_summary(err):
+                print(f"[ptxas] parent {name}: {line}")
+        _, culled, _, mk = kernel_modules()
+        self.libs = {
+            culled: culled.bind(ctypes.CDLL(os.path.join(out, "culled.so"))),
+            mk: mk.bind(ctypes.CDLL(os.path.join(out, "megakernel.so")))}
+        print(f"[build] the parent tree's culled.cu and megakernel.cu from "
+              f"{csrc}")
+
+    def call(self, mod, fn):
+        """fn() with `mod`'s wrappers launching the parent's library."""
+        saved, mod._lib = mod._lib, self.libs[mod]
+        try:
+            return fn()
+        finally:
+            mod._lib = saved
+
+
+def dev_us(event):
+    """A profiler row's self device time in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_events(fn, warm):
+    """The device-side rows of torch.profiler's key_averages for one
+    `fn()`. The profiler's warm-up step runs `warm()` with tracing already
+    started and its events dropped, so that the recorded step does not
+    begin the trace: a trace can miss the launches at its very start."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in (warm, fn):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    # device-side rows only (a CPU op's row repeats its kernels' time), and
+    # not the step's own annotation, a device row that spans the whole step
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def device_ms(fns, reps=10):
+    """Mean device time (ms) per launch of the kernels that `fns` launch
+    ({tag: fn}: fn launches one kernel whose name holds tag), from
+    torch.profiler over `reps` rounds of calls in turns (forward, then
+    backward through the list), after a warm-up call each. Unlike CUDA
+    events around one call, it leaves out the wrapper's host time, which a
+    kernel of a tenth of a millisecond does not hide."""
+    items = list(fns.items())
+
+    def warm():
+        for _, fn in items:
+            fn()
+
+    def rounds():
+        for rnd in range(reps):
+            for _, fn in (items if rnd % 2 == 0 else items[::-1]):
+                fn()
+
+    warm()
+    torch.cuda.synchronize()
+    events = device_events(rounds, warm)
+    out = {}
+    for tag, _ in items:  # the trace may miss a launch at its start
+        hit = [e for e in events if tag in e.key]
+        count = sum(e.count for e in hit)
+        check(reps // 2 <= count <= reps,
+              f"profiled {count} launches of {tag}, want {reps}")
+        out[tag] = sum(dev_us(e) for e in hit) / 1e3 / count
+    return out
+
+
+def time_redesigned(name, label, n, smi, kernel, tag, plain, work, parent,
+                    mod, parent_tag, equal):
+    """The redesigned kernel (K3 or K7) alone at one wave of n rays.
+    `kernel(lanes)` launches it with that many lanes per ray (None: the
+    launcher's choice), whose kernel is named `tag(lanes)`. Prints its
+    device time per launch (`device_ms`) at each lane count of
+    culled.LANES (`[tune]`) and, with `parent`, the parent tree's kernel's
+    (named `parent_tag`) on the same inputs in the same turns (their
+    outputs must agree: `equal(new, old)`); the time of one wrapper call
+    by CUDA events, in turns with the parent's; the plain version's; the
+    bound and the shares of it. Returns (device ms at the launcher's
+    choice, plain_ms, bound_ms, bound_by, the parent's device ms or
+    None)."""
+    _, culled, _, _ = kernel_modules()
+    fns = {tag(g): (lambda g=g: kernel(g)) for g in culled.LANES}
+    calls = [lambda: kernel(None)]
+    if parent is not None:
+        check(equal(kernel(None), parent.call(mod, lambda: kernel(None))),
+              f"{name} {label}: the parent tree's kernel disagrees")
+        fns[parent_tag] = lambda: parent.call(mod, lambda: kernel(None))
+        calls.append(fns[parent_tag])
+    dev = device_ms(fns)
+    call_ms = turns_ms(calls)
+    ms = dev[tag(culled.lanes_for(n))]
+    old_ms = dev.get(parent_tag)
+    plain_ms = median_ms(plain, 3)
+    b_ms, b_by = work
+    old_txt = ("" if old_ms is None else
+               f"; the parent tree's kernel {old_ms:.4f} ms "
+               f"({b_ms / old_ms:.2%} of the bound), one call "
+               f"{call_ms[1]:.4f} ms")
+    print(f"[time] {name} {label} on {smi}: kernel {ms:.4f} ms of device "
+          f"time per launch ({b_ms / ms:.2%} of the bound), one call "
+          f"{call_ms[0]:.4f} ms{old_txt} (profiler, 10 launches each, and "
+          f"CUDA events, median of 10 each, in turns); plain PyTorch "
+          f"{plain_ms:.3f} ms (median of 3 warm runs); bound {b_ms:.4f} ms by "
+          f"{b_by}")
+    print(f"[tune] {name} {label}: device ms per launch at lanes per ray "
+          + ", ".join(f"{g}: {dev[tag(g)]:.4f}" for g in culled.LANES)
+          + f" (the launcher picks {culled.lanes_for(n)})")
+    return ms, plain_ms, b_ms, b_by, old_ms
 
 
 # ---------------------------------------------------------------------------
@@ -617,24 +786,22 @@ def phase_build():
 
 
 def ptxas_summary(log):
-    """One line per kernel from `-Xptxas -v` output: registers, stack and
-    spills (ptxas prints the stack/spill line, then the register line, after
-    each kernel's `Compiling entry function`)."""
+    """One line per kernel from `-Xptxas -v` output: registers, shared
+    memory, stack and spills (ptxas prints the stack/spill line, then the
+    register line, after each kernel's `Compiling entry function`), named
+    by the kernel and its template arguments (nearest_kernel<8>,
+    fused_kernel<4, true>)."""
     import re
 
     out, kernel, frame = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                      r"(I(?:L[bi]\d+E)+E)?", line)
         if m:
-            kernel, frame = m.group(1), ""
-            for short in ("pathtrace_bwd_kernel", "reduce_kernel",
-                          "pathtrace_kernelILb0", "pathtrace_kernelILb1",
-                          "culled_kernelILb0", "culled_kernelILb1",
-                          "fused_kernelILb0", "fused_kernelILb1",
-                          "triangle_kernel", "sphere_kernel"):
-                if short in kernel:
-                    kernel = short.replace("ILb0", "<false>").replace(
-                        "ILb1", "<true>")
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([bi])(\d+)E", m.group(2) or "")]
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            frame = ""
         elif kernel and "spill stores" in line:
             frame = line.strip()
         elif kernel and "Used" in line and "registers" in line:
@@ -781,18 +948,19 @@ def plain_triangle_nearest(o, d, tris, quirks):
 
 
 def dragon_waves(quirks, ids, paths, scene=None):
-    """Dragon's waves at 640x480 (of `scene`, by default dragon.scn) for
-    the sample ids (`mesh_waves`)."""
+    """Dragon's waves at 640x480 (of `scene`, by default dragon.scn on the
+    ids' device) for the sample ids (`mesh_waves`)."""
     from skele_raytracer_tpu_torch.scene.parser import parse_scene
 
     if scene is None:
         scene = parse_scene(os.path.join(SCENES, "dragon.scn")).to_scene(
-            quirks, device="cuda")
+            quirks, device=ids.device)
     return scene, mesh_waves(scene, quirks, 640, 480, ids, paths)
 
 
 def mesh_waves(scene, quirks, width, height, ids, paths):
-    """A mesh scene's waves at width x height for the sample ids: the
+    """A mesh scene's waves at width x height for the sample ids, on their
+    device (the card's kernels, or the plain versions on the CPU): the
     primary rays, the bounce rays of `paths` Monte-Carlo paths per sample
     with their live mask (the integrator's), and, where the scene has a
     directional light, the shadow rays toward it from the bounce hits
@@ -809,14 +977,14 @@ def mesh_waves(scene, quirks, width, height, ids, paths):
 
     cfg = RenderConfig(width=width, height=height, quirks=quirks,
                        monte_carlo=True, num_paths=paths, max_depth=2,
-                       backend="cuda")
+                       backend="cuda" if ids.is_cuda else "torch")
     o, d = rays_for_ids(scene.camera, cfg, 0, ids)
     o = o.contiguous()
     hits = intersect(o, d, scene, quirks=quirks)
     mat = gather_material(scene, hits.kind, hits.index, quirks=quirks)
     rep = lambda x: torch.repeat_interleave(x, paths, dim=0)
     path_ids = (ids[:, None] * paths
-                + torch.arange(paths, device="cuda")[None, :]).reshape(-1)
+                + torch.arange(paths, device=ids.device)[None, :]).reshape(-1)
     hits_p = type(hits)(*(rep(x) for x in hits))
     mat_p = type(mat)(*(rep(x) for x in mat))
     o1, d1, f = integrator._mc_continue(scene, cfg, 0, hits_p, mat_p,
@@ -1135,10 +1303,13 @@ def _sorted_wave(o, d, mesh, quirks, live=None, t_max=None):
     return feats, bound, lv
 
 
-def phase_mesh_timings(smi):
+def phase_mesh_timings(smi, parent=None):
     """Each mesh kernel alone and its plain version on the card, at one
-    main-path chunk's shape (CUDA events, median of warm runs), and
-    `render` end to end for dragon parity and clean gillum16."""
+    main-path chunk's shape (CUDA events, median of warm runs): K3 at
+    dragon's parity primary chunk and at both waves of the clean gillum16
+    chunk 37 (`time_redesigned`: with the parent tree's K3 in turns), K4 at
+    that chunk's bounce shadow wave, K5; and `render` end to end for dragon
+    parity and clean gillum16."""
     from skele_raytracer_tpu_torch.config import CLEAN, PARITY, RenderConfig
     from skele_raytracer_tpu_torch.models.renderer import render
     from skele_raytracer_tpu_torch.ops.camera import rays_for_ids
@@ -1155,33 +1326,40 @@ def phase_mesh_timings(smi):
               f"PyTorch {plain_ms:.3f} ms (median of 20 and 3 warm runs); "
               f"bound {work[0]:.4f} ms by {work[1]}")
 
+    def k3(wave, label, o, d, mesh, quirks, live=None):
+        feats, _, lvs = _sorted_wave(o, d, mesh, quirks, live=live)
+        parity = quirks.reference_triangle_test
+        times["culled_nearest", wave] = time_redesigned(
+            "culled_nearest", label, feats.shape[0], smi,
+            lambda g: culled.culled_nearest_kernel(feats, mesh, lvs,
+                                                   quirks=quirks, lanes=g),
+            lambda g: f"nearest_kernel<{g}>",
+            lambda: culled.culled_nearest_torch(
+                feats, mesh.rec, lvs, sign=1.0 if parity else -1.0,
+                clip=not parity),
+            mesh_work(o, d, mesh, quirks, live=live), parent, culled,
+            "culled_kernel<false>",
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+
     # parity primary wave: chunk 2 of 65536 ids (rows 204-307), coarse
     scene, _ = dragon_waves(PARITY, torch.arange(1, device="cuda"), 1)
     ids = torch.arange(2 * CHUNK_RAYS, 3 * CHUNK_RAYS, device="cuda")
     o, d = rays_for_ids(scene.camera, RenderConfig(width=640, height=480),
                         0, ids)
-    feats, _, _ = _sorted_wave(o, d, scene.clusters, PARITY)
-    timed("culled_nearest", "primary", f"dragon parity primary chunk "
-          f"({CHUNK_RAYS} rays, coarse)",
-          lambda: culled.culled_nearest_kernel(feats, scene.clusters, None,
-                                               quirks=PARITY),
-          lambda: culled.culled_nearest_torch(feats, scene.clusters.rec,
-                                              sign=1.0, clip=False),
-          mesh_work(o, d, scene.clusters, PARITY))
-    # clean gillum16 chunk 37 (4096 samples x 16 paths): its bounce wave
-    # (fine) and the bounce wave's shadow rays (fine)
+    k3("parity primary", f"dragon parity primary chunk ({CHUNK_RAYS} rays, "
+       f"coarse)", o, d, scene.clusters, PARITY)
+    # clean gillum16 chunk 37 (4096 samples x 16 paths): its primary wave
+    # (coarse), its bounce wave (fine) and the bounce wave's shadow rays
+    # (fine)
     ids = torch.arange(37 * 4096, 38 * 4096, device="cuda")
     scene, waves = dragon_waves(CLEAN, ids, 16)
+    o, d = waves["primary"]
+    k3("primary", f"dragon clean gillum16 chunk 37 primary wave "
+       f"({o.shape[0]} rays, coarse)", o, d, scene.clusters, CLEAN)
     o1, d1, lv = waves["bounce"]
     mesh = scene.clusters_fine
-    feats, _, lvs = _sorted_wave(o1, d1, mesh, CLEAN, live=lv)
-    timed("culled_nearest", "bounce", f"dragon clean gillum16 bounce chunk "
-          f"({o1.shape[0]} rays, fine, {lv.mean().item():.3f} live)",
-          lambda: culled.culled_nearest_kernel(feats, mesh, lvs,
-                                               quirks=CLEAN),
-          lambda: culled.culled_nearest_torch(feats, mesh.rec, lvs,
-                                              sign=-1.0, clip=True),
-          mesh_work(o1, d1, mesh, CLEAN, live=lv))
+    k3("bounce", f"dragon clean gillum16 bounce chunk ({o1.shape[0]} rays, "
+       f"fine, {lv.mean().item():.3f} live)", o1, d1, mesh, CLEAN, lv)
     so, sd, slv = waves["shadow"]
     big = torch.full((so.shape[0],), culled.BIG, device="cuda")
     feats, t_bound, lvs = _sorted_wave(so, sd, mesh, CLEAN, live=slv,
@@ -1390,31 +1568,30 @@ def check_k2_frame(label, tabs, planes, rec, g, static, smi,
 def profile_device(label, fn, wall, smi, tags):
     """One `fn()` under torch.profiler: the device's busy time (self CUDA
     time of every kernel), the time and share of it in the kernels whose
-    names hold each of `tags` ({name: substring}; each must show device
-    time), the device kernels launched, and the idle share of `wall`, the
-    unprofiled call's time in ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events only (a CPU op's row repeats its kernels' time)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(dev(e) for e in events) / 1e3
-    part = {name: sum(dev(e) for e in events if tag in e.key) / 1e3
-            for name, tag in tags.items()}
-    check(busy > 0 and all(v > 0 for v in part.values()),
-          f"{label}: the profile shows no device time for {part}")
+    names hold each of `tags` ({name: substring}), the device kernels
+    launched, and the idle share of `wall`, the unprofiled call's time in
+    ms (`device_events`). A trace that misses a tagged kernel is taken
+    again, up to `PROFILE_TRIES` times; then the line says
+    the breakdown was not measured (the launch counters, not the profiler,
+    show which kernels the path ran)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        events = device_events(fn, fn)
+        busy = sum(dev_us(e) for e in events) / 1e3
+        part = {name: sum(dev_us(e) for e in events if tag in e.key) / 1e3
+                for name, tag in tags.items()}
+        if busy > 0 and all(v > 0 for v in part.values()):
+            break
+    else:
+        print(f"[profile] {label} on {smi}: not measured: {PROFILE_TRIES} "
+              f"traces showed no device time for some of {part}")
+        return
     print(f"[profile] {label} on {smi}: {wall:.3f} ms (unprofiled, median "
           f"of 3), device busy {busy:.3f} ms -> idle "
           f"{max(0.0, 1 - busy / wall):.1%}; "
           + ", ".join(f"{name} {v:.3f} ms ({v / busy:.1%})"
                       for name, v in part.items())
-          + f"; {sum(e.count for e in events)} device kernels")
+          + f"; {sum(e.count for e in events)} device kernels"
+          + (f" (trace {attempt} of {PROFILE_TRIES})" if attempt > 1 else ""))
 
 
 def profile_train_step(state, cfg, target, label, smi):
@@ -1679,6 +1856,27 @@ def phase_k6(smi):
 FUSED_DIRECT_RTOL = 1e-5  # K7 vs plain: |direct diff| <= this x max|plain|
 
 
+def fused_diff(label, k, p):
+    """Checks K7's outputs `k` against its plain version's `p`: kind,
+    index and the shadow bits equal on every ray, t bitwise on misses and
+    within T_RTOL relative on hits, direct within FUSED_DIRECT_RTOL of the
+    plain version's largest value. Returns (max |direct diff|, max |t diff|
+    over hits, max |direct|)."""
+    for a, b, what in zip(k[2:], p[2:], ("kind", "index", "unsh")):
+        check(torch.equal(a, b), f"K7 {label}: {what} differs on "
+              f"{(a != b).sum().item()} values")
+    hit = p[2] > 0
+    t_err = (k[1] - p[1]).abs()
+    check(torch.equal(k[1][~hit], p[1][~hit]) and bool(
+        (t_err[hit] <= T_RTOL * p[1][hit].abs()).all()),
+        f"K7 {label}: t differs by up to {t_err.max().item():.3e}")
+    d_err = (k[0] - p[0]).abs().max().item()
+    scale = p[0].abs().max().item()
+    check(d_err <= FUSED_DIRECT_RTOL * scale,
+          f"K7 {label}: direct off by {d_err:.3e} (max {scale:.3e})")
+    return d_err, t_err[hit].max().item() if bool(hit.any()) else 0.0, scale
+
+
 def check_fused(label, o, d, scene, live=None):
     """K7 against its plain version on the card on one wave, with and
     without shadows, with the wave's live mask (or none) and with one that
@@ -1705,21 +1903,9 @@ def check_fused(label, o, d, scene, live=None):
                 feats, lvs, mesh, *tabs, use_shadows=shadows))
             p = mk.fused_shade_torch(feats, lvs, mesh.rec, *tabs,
                                      use_shadows=shadows)
-            for a, b, what in zip(k[2:], p[2:], ("kind", "index", "unsh")):
-                check(torch.equal(a, b), f"K7 {label}: {what} differs on "
-                      f"{(a != b).sum().item()} values")
+            d_err, t_worst, scale = fused_diff(label, k, p)
             hit = p[2] > 0
-            t_err = (k[1] - p[1]).abs()
-            check(torch.equal(k[1][~hit], p[1][~hit]) and bool(
-                (t_err[hit] <= T_RTOL * p[1][hit].abs()).all()),
-                f"K7 {label}: t differs by up to {t_err.max().item():.3e}")
-            d_err = (k[0] - p[0]).abs().max().item()
-            scale = p[0].abs().max().item()
-            check(d_err <= FUSED_DIRECT_RTOL * scale,
-                  f"K7 {label}: direct off by {d_err:.3e} (max {scale:.3e})")
-            any_hit = bool(hit.any())
-            t_worst = t_err[hit].max().item() if any_hit else 0.0
-            lit = p[4][hit].mean().item() if any_hit else 1.0
+            lit = p[4][hit].mean().item() if bool(hit.any()) else 1.0
             worst_direct = max(worst_direct, d_err)
             worst_t = max(worst_t, t_worst)
             n_live = o.shape[0] if lvs is None else int(lvs.sum())
@@ -1768,13 +1954,73 @@ def phase_fused_kernels():
     return worst
 
 
+def phase_lanes_vs_plain():
+    """K3 and K7 against their plain versions on the card for each lane
+    count they are built for (culled.LANES) and for the launcher's own
+    choice: on dragon's chunk-37 primary wave (4,096 rays; K7 on lit
+    dragon, shadows on) and on its bounce wave cut to 65,536 - 37 rays, a
+    count that is no multiple of any tile, with the wave's dead rays
+    sorted to the tail. K3's t and index bitwise equal; K7 as
+    `fused_diff`. Returns K7's worst (|direct diff|, |t diff|)."""
+    from skele_raytracer_tpu_torch.config import CLEAN
+
+    _, culled, _, mk = kernel_modules()
+    ids = torch.arange(37 * 4096, 38 * 4096, device="cuda")
+    cut = CHUNK_RAYS - 37
+    worst7 = [0.0, 0.0]
+    scene, waves = dragon_waves(CLEAN, ids, 16)
+    o1, d1, lv = (x[:cut] for x in waves["bounce"])
+    for label, (o, d, live), mesh in (
+            ("primary", (*waves["primary"], None), scene.clusters),
+            ("bounce", (o1, d1, lv), scene.clusters_fine)):
+        feats, _, lvs = _sorted_wave(o, d, mesh, CLEAN, live=live)
+        pt, pi = culled.culled_nearest_torch(feats, mesh.rec, lvs, sign=-1.0,
+                                             clip=True)
+        for g in (None, *culled.LANES):
+            kt, ki = launched(culled, "culled_nearest",
+                              lambda: culled.culled_nearest_kernel(
+                                  feats, mesh, lvs, quirks=CLEAN, lanes=g))
+            check(torch.equal(kt, pt) and torch.equal(ki, pi),
+                  f"K3 {label} lanes {g}: differs on "
+                  f"{((kt != pt) | (ki != pi)).sum().item()} rays")
+        print(f"[kernel-vs-plain] K3 dragon clean chunk 37 {label} wave "
+              f"({feats.shape[0]} rays, {mesh.cluster_size}-triangle "
+              f"clusters), lanes per ray {culled.LANES} and the launcher's "
+              f"{culled.lanes_for(feats.shape[0])}: t and index bitwise "
+              f"equal (ok)")
+    lit = lit_dragon("cuda")
+    _, waves = dragon_waves(CLEAN, ids, 16, scene=lit)
+    tabs = mk.pack_tables(lit)
+    o1, d1, lv = (x[:cut] for x in waves["bounce"])
+    for label, (o, d, live) in (("primary", (*waves["primary"], None)),
+                                ("bounce", (o1, d1, lv))):
+        order, lvs = mk.sort_rays(o, d, lit.clusters, live)
+        feats = culled._ray_features10(o, d)[order].contiguous()
+        p = mk.fused_shade_torch(feats, lvs, lit.clusters.rec, *tabs,
+                                 use_shadows=True)
+        for g in (None, *culled.LANES):
+            k = launched(mk, "fused_shade", lambda: mk.fused_shade_kernel(
+                feats, lvs, lit.clusters, *tabs, use_shadows=True, lanes=g))
+            errs = fused_diff(f"lit dragon {label} lanes {g}", k, p)
+            worst7 = [max(a, b) for a, b in zip(worst7, errs)]
+        hit = p[2] > 0
+        print(f"[kernel-vs-plain] K7 lit dragon chunk 37 {label} wave "
+              f"({feats.shape[0]} rays, shadows, "
+              f"{p[4][hit].mean().item():.3f} of hits unshadowed), lanes "
+              f"per ray {culled.LANES} and the launcher's "
+              f"{culled.lanes_for(feats.shape[0])}: kind, index, shadow bits "
+              f"equal, max |t diff| {worst7[1]:.3e}, max |direct diff| "
+              f"{worst7[0]:.3e} (ok)")
+    return worst7
+
+
 FUSED_FRAMES = [  # (label, scene, width, height, paths, warm frames
     ("dragon", "dragon.scn", 640, 480, 16, 3),  # timed; 0: the first)
     ("test.scn", "test.scn", 1024, 768, 4, 0),  # clean, depth 2, shadows
 ]
 
 
-def phase_fused_main(smi):
+def phase_fused_main(smi, parent=None):
     """The fused route's main path: `render` of dragon 640x480 clean
     gillum 16 depth 2 shadows with fused_megakernel, the launch counters
     set to 0 just before and read just after (K7 150 times, no other
@@ -1784,8 +2030,9 @@ def phase_fused_main(smi):
     values within rtol 1e-3, atol 1e-3: tests/test_megakernel.py's
     criterion); the same for test.scn 1024x768 clean gillum 4 (timed on
     the first frame of each route); lit dragon's fused route on the card
-    against the CPU plain path on sampled ids; and K7 alone against its
-    plain version at dragon's bounce chunk."""
+    against the CPU plain path on sampled ids; and K7 alone at both waves
+    of dragon's chunk 37 (`time_redesigned`, with the parent tree's K7 in
+    turns). Returns the launches, frame times and K7's timings."""
     from skele_raytracer_tpu_torch.config import CLEAN, RenderConfig
     from skele_raytracer_tpu_torch.models.renderer import (
         _chunk_samples,
@@ -1831,14 +2078,22 @@ def phase_fused_main(smi):
               f"frame ({how})")
         out[label] = dict(launches=launches, fused_ms=fused_ms,
                           split_ms=split_ms, share=share)
+        if label == "dragon" and parent is not None:
+            ms = turns_ms([fused, lambda: parent.call(mk, fused), split_frame,
+                           lambda: parent.call(culled, split_frame)], reps=3)
+            print(f"[fused] {label} {w}x{h} frames with this tree's and the "
+                  f"parent tree's K7 and K3, in turns (median of 3 frames "
+                  f"each) on {smi}: fused {ms[0]:.2f} ms (parent's K7 "
+                  f"{ms[1]:.2f} ms), split {ms[2]:.2f} ms (parent's K3 "
+                  f"{ms[3]:.2f} ms; K4 is the same kernel in both trees)")
         if label == "dragon":
             # one chunk of the frame (chunk 37: 4,096 samples x 16 paths)
             # under the profiler, through each route
             ids = torch.arange(37 * 4096, 38 * 4096, device="cuda")
             for route, c, tags in (
                     ("fused", cfg, {"K7": "fused_kernel"}),
-                    ("split", split_cfg, {"K3": "culled_kernel<false>",
-                                          "K4": "culled_kernel<true>"})):
+                    ("split", split_cfg, {"K3": "nearest_kernel",
+                                          "K4": "occluded_kernel"})):
                 chunk = lambda: render_ids_chunked(scene, c, 0, ids)
                 profile_device(f"{label} {route} route, chunk 37", chunk,
                                statistics.median(cuda_ms(chunk, 3)), smi,
@@ -1860,28 +2115,33 @@ def phase_fused_main(smi):
           f"{mdiff:.2e} ({'ok' if ok else 'FAIL'})")
     check(ok, "fused lit dragon: render disagrees with the plain path")
 
-    # K7 alone at dragon's bounce chunk (clean gillum16 chunk 37), the
-    # wave of the main path that dominates its frame
+    # K7 alone at both waves of dragon's clean gillum16 chunk 37 (the
+    # bounce wave dominates the frame), with the parent tree's K7 in turns
     ids = torch.arange(37 * 4096, 38 * 4096, device="cuda")
     scene, waves = dragon_waves(CLEAN, ids, 16)
-    o1, d1, lv = waves["bounce"]
-    order, lvs = mk.sort_rays(o1, d1, scene.clusters, lv)
-    feats = culled._ray_features10(o1, d1)[order].contiguous()
     tabs = mk.pack_tables(scene)
-    kernel = lambda: mk.fused_shade_kernel(feats, lvs, scene.clusters, *tabs,
-                                           use_shadows=True)
-    plain = lambda: mk.fused_shade_torch(feats, lvs, scene.clusters.rec,
-                                         *tabs, use_shadows=True)
-    ms = median_ms(kernel, 20)
-    plain_ms = median_ms(plain, 3)
-    outs = mk.fused_shade_forward(o1, d1, scene, use_shadows=True, live=lv)
-    bound = fused_work(o1, d1, scene, outs, True, live=lv)
-    print(f"[time] fused_shade dragon clean gillum16 bounce chunk "
-          f"({o1.shape[0]} rays, coarse, {lv.mean().item():.3f} live, "
-          f"shadows) on {smi}: kernel {ms:.4f} ms, plain PyTorch "
-          f"{plain_ms:.3f} ms (median of 20 and 3 warm runs); bound "
-          f"{bound[0]:.4f} ms by {bound[1]}")
-    out["time"] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+    o1, d1, lv = waves["bounce"]
+    for wave, (o, d, live) in (("primary", (*waves["primary"], None)),
+                               ("bounce", (o1, d1, lv))):
+        order, lvs = mk.sort_rays(o, d, scene.clusters, live)
+        feats = culled._ray_features10(o, d)[order].contiguous()
+        outs = mk.fused_shade_forward(o, d, scene, use_shadows=True,
+                                      live=live)
+        live_txt = "" if live is None else f", {live.mean().item():.3f} live"
+        out[wave] = time_redesigned(
+            "fused_shade", f"dragon clean gillum16 chunk 37 {wave} wave "
+            f"({o.shape[0]} rays, coarse{live_txt}, shadows)", o.shape[0],
+            smi,
+            lambda g: mk.fused_shade_kernel(feats, lvs, scene.clusters,
+                                            *tabs, use_shadows=True, lanes=g),
+            lambda g: f"fused_kernel<{g}, true>",
+            lambda: mk.fused_shade_torch(feats, lvs, scene.clusters.rec,
+                                         *tabs, use_shadows=True),
+            fused_work(o, d, scene, outs, True, live=live), parent, mk,
+            "fused_kernel<true>",
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+            and bool((a[0] - b[0]).abs().max() <= FUSED_DIRECT_RTOL
+                     * b[0].abs().max()))
     return out
 
 
@@ -2000,15 +2260,23 @@ def phase_fused_grad():
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", help="an earlier tree's csrc/ whose K3 "
+                    "and K7 are timed in turns with this tree's")
+    args = ap.parse_args()
     smi = phase_device()
     phase_build()
+    parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
     worst_small = phase_kernel_vs_plain()
     worst_mesh = phase_mesh_kernels_vs_plain()
     t0 = time.perf_counter()
     k6 = phase_k6(smi)
     fused_err = phase_fused_kernels()
+    lanes_err = phase_lanes_vs_plain()
     t1 = time.perf_counter()
-    fused = phase_fused_main(smi)
+    fused = phase_fused_main(smi, parent)
     t2 = time.perf_counter()
     phase_fused_grad()
     t3 = time.perf_counter()
@@ -2018,7 +2286,7 @@ def main() -> int:
     phase_goldens()
     launches, parity = phase_main_path(smi)
     mesh_counts = phase_mesh_main_path()
-    times = phase_mesh_timings(smi)
+    times = phase_mesh_timings(smi, parent)
     t0 = time.perf_counter()
     rec_err, k2_err = phase_k2_headline()
     phase_train_routes()
@@ -2064,7 +2332,7 @@ def main() -> int:
          "primary"),
     ]
     for name, src, tpu, run, wave in mesh:
-        ms, plain_ms, b_ms, b_by = times[name, wave]
+        ms, plain_ms, b_ms, b_by = times[name, wave][:4]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"skele_raytracer_tpu_torch/csrc/{src}",
@@ -2072,15 +2340,15 @@ def main() -> int:
             launches=mesh_counts[run][name],
             max_abs_err=worst_mesh[name], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    ft = fused["time"]
+    ft = fused["bounce"]
     kernels += [
         dict(name="fused_shade", route="cuda",
              source="skele_raytracer_tpu_torch/csrc/megakernel.cu",
              replaces="skele_raytracer_tpu/ops/pallas/megakernel.py:170",
              launches=fused["dragon"]["launches"]["fused_shade"],
-             max_abs_err=max(fused_err), ms=ft["ms"], plain_ms=ft["plain_ms"],
-             bound_ms=ft["bound"][0], bound_by=ft["bound"][1],
-             library_ms=None),
+             max_abs_err=max(*fused_err, *lanes_err), ms=ft[0],
+             plain_ms=ft[1],
+             bound_ms=ft[2], bound_by=ft[3], library_ms=None),
         dict(name="sphere_nearest", route="cuda",
              source="skele_raytracer_tpu_torch/csrc/intersect.cu",
              replaces="skele_raytracer_tpu/ops/pallas/intersect.py:85",

@@ -149,6 +149,19 @@ MM_FN bool blocks(const float* f, const float* r, float bound) {
   return mm::brute_t(mm::planes(f, r, -1.0f), true, T_EPS, u, v) < bound;
 }
 
+// One lane's share of a staged cluster for the shadow ray f: does any of
+// records lane, lane + G, ... (of cs) block it before `bound`? Stops at
+// the lane's first blocker; the group ORs its lanes' answers.
+MM_FN bool lane_blocks(const float* f, const float* recs, int cs, int lane,
+                       int G, float bound) {
+  const mm::Rec* rr = reinterpret_cast<const mm::Rec*>(recs);
+  for (int j = lane; j < cs; j += G) {
+    const mm::Rec r = rr[j];
+    if (blocks(f, r.v, bound)) return true;
+  }
+  return false;
+}
+
 // One light's Blinn-Phong term (megakernel.py:473-500), added to direct.
 MM_FN void add_light(Surface& s, const float* ldir, const float* l,
                      bool point, float unsh, float falloff) {

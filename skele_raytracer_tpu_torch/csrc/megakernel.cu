@@ -13,51 +13,57 @@
 // index [n] int32, and the unshadowed bit of each light [n, L]. Dead rays
 // (live == 0) get the defaults: direct 0, t BIG, kind 0, index 0, unsh 1.
 //
-// Design. One block is one 256-ray tile of the sorted batch, one thread
-// one ray; the sphere and light tables sit in shared memory.
-// * Primary hit: the block builds its front-to-back cluster shortlist in
-//   shared memory as culled.cu does (slab tests against the widened
-//   `kernel_boxes`, an integer atomicMin per cluster, a rank sort), stages
-//   each shortlisted cluster's 20-float triangle records (20 KB at cs =
-//   256) in shared memory and stops once the next entry lies past every
+// What bounds it: the FP32 throughput and latency of the (ray, triangle)
+// tests -- the primary pass over the shortlisted clusters and one shadow
+// pass per light (4 dot products, a reciprocal and ~8 compares per pair,
+// dependent and unfused) -- and how many warps are in flight to hide that
+// latency. Device memory is small: 40 B in, ~24 B plus 4 B per light out
+// per ray, and the records (L2-resident: dragon's are 0.8 MB).
+//
+// Design (cluster_walk.cuh). The first port ran one thread per ray in
+// 256-ray tiles: dragon's 4,096-ray primary wave filled 16 blocks of 132
+// SMs, the tile walked the union of 256 rays' shortlists, each cluster was
+// copied with plain loads between two barriers, and each light swept all
+// C boxes in index order with two barriers per box. Now:
+// * G lanes per ray (32 for waves of up to 16,384 rays, 16 above), 256
+//   threads = 256 / G rays per block; the sphere and light tables and the
+//   box table sit in shared memory.
+// * Primary hit: the block's front-to-back shortlist over the widened
+//   `kernel_boxes` (the lanes split the slab tests), the records through
+//   the two-stage cp.async.bulk ring, each lane every G-th record of a
+//   cluster (brute_t), the group's (t, index) merged by shuffles after
+//   each cluster, and the block stops once the next entry lies past every
 //   ray's best t. The TPU took the shortlist from host-side [R, C] tables
 //   and an argsort, and culled with the unwidened boxes; with the widened
 //   ones the answer is the brute-force minimum whatever the tiling.
 // * Triangle shading data: the TPU streamed 14 shade planes beside every
 //   cluster and picked the winner's with a one-hot product on each
-//   iteration. Here only the records are staged; after the loop each ray
-//   reads its winner's 14 floats from the [T, 14] table by original index
-//   (one 56-byte read from L2).
-// * Shadows: every cluster box is swept in order per light, as on the TPU
-//   (shadow origins exist only after the hit). A cluster's records are
-//   staged only when some hit, not-yet-occluded ray of the tile enters its
-//   box before its bound and the light is not masked (the TPU's
-//   `jnp.any(pend)` gate, here __syncthreads_or); a ray stops testing once
-//   it is occluded, and the block stops sweeping once every ray is.
-//   Spheres occlude every ray, hit or not, as on the TPU.
+//   iteration. Here only the records are staged; after the walk each lane
+//   reads its winner's 14 floats from the [T, 14] table by original index.
+//   The per-ray epilogue (sphere scan, fm::surface, add_light) runs in
+//   every lane of the group, which gives the same bits in each.
+// * Shadows (shadow origins exist only after the hit): per unmasked light,
+//   the block builds the shortlist of the clusters that some hit,
+//   unoccluded shadow ray of the tile enters before its bound, front to
+//   back, and only those are staged, through the same ring. Each lane tests
+//   every G-th record (stopping at its first blocker), the group ORs its
+//   bits; a ray stops at its first occluder, and the block stops when no
+//   ray is left unoccluded with a bound past the next entry. Spheres
+//   occlude every ray, hit or not, as on the TPU.
 // * One mode: the TPU's VMEM-resident and DMA-streaming variants become
-//   records read from L2 through shared memory.
-//
-// What bounds it: the FP32 issue rate of the (ray, triangle) tests -- the
-// primary pass over the shortlisted clusters and one shadow pass per light
-// (4 dot products, a reciprocal and ~8 compares per pair) -- plus the slab
-// tests of every cluster box per light, and the divergence between the
-// rays of a tile (rays that enter different clusters, rays that finish
-// early wait for the block). Device memory is small: 40 B in, ~24 B plus
-// 4 B per light out per ray, and the records (L2-resident: dragon's are
-// 0.8 MB). The design keeps all intermediate per-ray state in registers
-// and the staged records in shared memory; the rank-ordered shortlist and
-// the occlusion exits bound the tests.
+//   records read from L2 through the ring.
+// * No tensor cores: a TF32 or 3xTF32 wgmma for the numerators is not
+//   bitwise equal to FP32, and the division, compares and minimum after the
+//   product stay on the FP32 cores anyway (culled.cu's note).
 //
 // Built with -fmad=false so every operation rounds as in the plain version.
 
 #include <cuda_runtime.h>
 
+#include "cluster_walk.cuh"
 #include "fused_math.cuh"
 
 namespace {
-
-constexpr int kTile = 256;  // rays per block
 
 struct FusedArgs {
   int n;   // rays
@@ -69,8 +75,13 @@ struct FusedArgs {
   int L;   // lights
 };
 
-template <bool SHADOWS>
-__global__ void __launch_bounds__(kTile)
+// floats of K7's own tables in shared memory: spheres, lights, cnst
+__host__ __device__ inline int extra_floats(const FusedArgs& a) {
+  return a.S * fm::SROW + a.L * fm::LROW + 6;
+}
+
+template <int G, bool SHADOWS>
+__global__ void __launch_bounds__(cw::kThreads)
     fused_kernel(FusedArgs a, const float* __restrict__ feats,
                  const float* __restrict__ live,
                  const float* __restrict__ rec, const float* __restrict__ lo,
@@ -84,22 +95,23 @@ __global__ void __launch_bounds__(kTile)
                  int32_t* __restrict__ out_index,
                  float* __restrict__ out_unsh) {
   extern __shared__ float4 smem4[];
-  float* s_rec = reinterpret_cast<float*>(smem4);  // [cs * REC]
-  float* s_sph = s_rec + a.cs * mm::REC;           // [S * SROW]
-  float* s_lig = s_sph + a.S * fm::SROW;           // [L * LROW]
-  float* s_cn = s_lig + a.L * fm::LROW;            // [6]
-  int32_t* s_key = reinterpret_cast<int32_t*>(s_cn + 6);  // [C]
-  int32_t* s_cand = s_key + a.C;                   // [C] entered, unsorted
-  int32_t* s_list = s_cand + a.C;                  // [C] sorted shortlist
-  float* s_ent = reinterpret_cast<float*>(s_list + a.C);  // [C + 1]
+  __shared__ uint64_t s_bar[2];
   __shared__ int s_n;
-
   const int tid = threadIdx.x;
-  const int r = blockIdx.x * kTile + tid;
-  for (int k = tid; k < a.S * fm::SROW; k += kTile) s_sph[k] = sph[k];
-  for (int k = tid; k < a.L * fm::LROW; k += kTile) s_lig[k] = lights[k];
+  const cw::Shared sh = cw::carve(smem4, a.C, a.cs, extra_floats(a));
+  float* s_sph = sh.extra;                // [S * SROW]
+  float* s_lig = s_sph + a.S * fm::SROW;  // [L * LROW]
+  float* s_cn = s_lig + a.L * fm::LROW;   // [6]
+  cw::Ring ring{sh.ring, s_bar, a.cs * mm::REC};
+  ring.init();
+  cw::load_boxes(sh, lo, hi, a.C);
+  for (int k = tid; k < a.S * fm::SROW; k += cw::kThreads) s_sph[k] = sph[k];
+  for (int k = tid; k < a.L * fm::LROW; k += cw::kThreads)
+    s_lig[k] = lights[k];
   if (tid < 6) s_cn[tid] = cnst[tid];
 
+  const int lane = tid % G;
+  const int r = blockIdx.x * (cw::kThreads / G) + tid / G;
   const bool alive = r < a.n && (live == nullptr || live[r] != 0.0f);
   float f[mm::FEAT];
   for (int k = 0; k < mm::FEAT; ++k)
@@ -109,76 +121,35 @@ __global__ void __launch_bounds__(kTile)
   const float inv_d[3] = {mm::inv_dir(f[0]), mm::inv_dir(f[1]),
                           mm::inv_dir(f[2])};
 
-  // ---- the tile's primary shortlist (culled.cu) -------------------------
-  const int32_t key_big = mm::ordered_key(__float_as_int(mm::BIG));
-  for (int c = tid; c < a.C; c += kTile) s_key[c] = key_big;
-  if (tid == 0) s_n = 0;
-  __syncthreads();
-  if (alive) {
-    for (int c = 0; c < a.C; ++c) {
-      float tmin, tmax;
-      const bool enter = mm::slab(o, inv_d, lo + 3 * c, hi + 3 * c, tmin,
-                                  tmax) && (tmax > 0.0f);
-      if (enter) atomicMin(&s_key[c], mm::ordered_key(__float_as_int(tmin)));
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < a.C; c += kTile)
-    if (s_key[c] < key_big) s_cand[atomicAdd(&s_n, 1)] = c;
-  __syncthreads();
-  const int n_list = s_n;
-  for (int i = tid; i < n_list; i += kTile) {
-    const int ci = s_cand[i];
-    const int32_t ki = s_key[ci];
-    int rank = 0;
-    for (int j = 0; j < n_list; ++j) {
-      const int cj = s_cand[j];
-      const int32_t kj = s_key[cj];
-      rank += (kj < ki) || (kj == ki && cj < ci);
-    }
-    s_list[rank] = ci;
-    s_ent[rank] = __int_as_float(mm::ordered_key(ki));
-  }
-  if (tid == 0) s_ent[n_list] = mm::BIG;
-  __syncthreads();
-
+  // ---- nearest triangle: the tile's shortlist, clusters front to back ---
+  const int n_list = cw::shortlist<G>(sh, a.C, alive, [&](int c, float& tmin) {
+    float tmax;
+    return mm::slab(o, inv_d, sh.lo + 3 * c, sh.hi + 3 * c, tmin, tmax) &&
+           (tmax > 0.0f);
+  }, &s_n);
   float texit;
   {
-    float tmin, tmax;
-    mm::slab(o, inv_d, root, root + 3, tmin, tmax);
-    texit = tmax;
+    float tmin;
+    mm::slab(o, inv_d, root, root + 3, tmin, texit);
   }
-
-  // ---- nearest triangle, clusters front to back ------------------------
   float t_tri = mm::BIG;
   int32_t i_tri = mm::BIG_I;
-  const int n4 = a.cs * mm::REC / 4;
-  for (int p = 0; p < n_list; ++p) {
-    const int c = s_list[p];
-    const float4* src = reinterpret_cast<const float4*>(rec) + (size_t)c * n4;
-    __syncthreads();  // the previous cluster's records are no longer read
-    for (int k = tid; k < n4; k += kTile) smem4[k] = src[k];
-    __syncthreads();
+  cw::walk(ring, rec, sh.list, n_list, [&](int p, const float* recs) {
     if (alive) {
+      const int c = sh.list[p];
       float tmin, tmax;
-      const bool enter = mm::slab(o, inv_d, lo + 3 * c, hi + 3 * c, tmin,
-                                  tmax) && (tmax > fm::T_EPS) &&
+      const bool enter = mm::slab(o, inv_d, sh.lo + 3 * c, sh.hi + 3 * c,
+                                  tmin, tmax) && (tmax > fm::T_EPS) &&
                          (tmin <= t_tri);
-      if (enter) {
-        for (int j = 0; j < a.cs; ++j) {
-          const float* rj = s_rec + j * mm::REC;
-          float u, v;
-          mm::nearest_update(
-              mm::brute_t(mm::planes(f, rj, -1.0f), true, fm::T_EPS, u, v),
-              (int32_t)rj[19], t_tri, i_tri);
-        }
-      }
+      if (enter)
+        mm::lane_nearest<true>(f, recs, a.cs, lane, G, -1.0f, true,
+                               fm::T_EPS, t_tri, i_tri);
     }
-    const bool need = alive && fminf(t_tri, texit) >= s_ent[p + 1];
-    if (!__syncthreads_or(need)) break;
-  }
+    cw::group_nearest<G>(t_tri, i_tri);
+    return alive && fminf(t_tri, texit) >= sh.ent[p + 1];
+  });
 
-  // ---- nearest sphere and the hit data ---------------------------------
+  // ---- nearest sphere and the hit data (every lane) ----------------------
   fm::Surface s{};
   if (alive) {
     i_tri = i_tri < a.T - 1 ? i_tri : a.T - 1;
@@ -190,6 +161,7 @@ __global__ void __launch_bounds__(kTile)
                     shade + (size_t)i_tri * fm::TROW, s_cn);
   }
   const bool hit = alive && s.kind > 0;
+  const bool out = r < a.n && lane == 0;
 
   // ---- lights: shadow test, then the Blinn-Phong term -------------------
   for (int l = 0; l < a.L; ++l) {
@@ -206,37 +178,29 @@ __global__ void __launch_bounds__(kTile)
         float fs[mm::FEAT], inv_s[3];
         fm::shadow_features(s, ldir, fs);
         for (int k = 0; k < 3; ++k) inv_s[k] = mm::inv_dir(ldir[k]);
-        for (int c = 0; c < a.C; ++c) {
-          // a barrier too: no thread still reads the staged records
-          if (!__syncthreads_or(hit && !occ)) break;
-          bool enter = false;
-          if (hit && !occ) {
-            float tmin, tmax;
-            enter = mm::slab(s.sh, inv_s, lo + 3 * c, hi + 3 * c, tmin,
-                             tmax) && (tmax > fm::T_EPS) && (tmin < bound);
-          }
-          if (!__syncthreads_or(enter)) continue;
-          const float4* src =
-              reinterpret_cast<const float4*>(rec) + (size_t)c * n4;
-          for (int k = tid; k < n4; k += kTile) smem4[k] = src[k];
-          __syncthreads();
-          if (enter) {
-            for (int j = 0; j < a.cs; ++j) {
-              if (fm::blocks(fs, s_rec + j * mm::REC, bound)) {
-                occ = true;
-                break;
-              }
-            }
-          }
-        }
+        auto enters = [&](int c, float& tmin) {
+          float tmax;
+          return mm::slab(s.sh, inv_s, sh.lo + 3 * c, sh.hi + 3 * c, tmin,
+                          tmax) && (tmax > fm::T_EPS) && (tmin < bound);
+        };
+        const int m = cw::shortlist<G>(sh, a.C, hit && !occ, enters, &s_n);
+        cw::walk(ring, rec, sh.list, m, [&](int p, const float* recs) {
+          float tmin;
+          if (hit && !occ && enters(sh.list[p], tmin))
+            occ = fm::lane_blocks(fs, recs, a.cs, lane, G, bound);
+          occ = cw::group_any<G>(occ);
+          // a later cluster's entry is at least ent[p + 1]: past the
+          // bound, the ray enters none of them
+          return hit && !occ && bound > sh.ent[p + 1];
+        });
       }
     }
     const float unsh = occ ? 0.0f : 1.0f;
     if (alive) fm::add_light(s, ldir, lr, point, unsh, falloff);
-    if (r < a.n) out_unsh[(size_t)r * a.L + l] = alive ? unsh : 1.0f;
+    if (out) out_unsh[(size_t)r * a.L + l] = alive ? unsh : 1.0f;
   }
 
-  if (r < a.n) {
+  if (out) {
     for (int k = 0; k < 3; ++k)
       out_direct[(size_t)r * 3 + k] = alive ? s.direct[k] : 0.0f;
     out_t[r] = alive ? s.t : mm::BIG;
@@ -245,39 +209,81 @@ __global__ void __launch_bounds__(kTile)
   }
 }
 
-template <bool SHADOWS>
+template <int G, bool SHADOWS>
 int launch(const FusedArgs& a, const float* feats, const float* live,
            const float* rec, const float* lo, const float* hi,
            const float* root, const float* shade, const float* sph,
            const float* lights, const float* cnst, float* out_direct,
            float* out_t, int32_t* out_kind, int32_t* out_index,
            float* out_unsh, void* stream) {
-  if (a.n <= 0) return (int)cudaGetLastError();
-  const size_t smem =
-      sizeof(float) * ((size_t)a.cs * mm::REC + (size_t)a.S * fm::SROW +
-                       (size_t)a.L * fm::LROW + 6) +
-      sizeof(int32_t) * 3 * (size_t)a.C + sizeof(float) * ((size_t)a.C + 1);
+  const size_t smem = cw::smem_bytes(a.C, a.cs, extra_floats(a));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_kernel<SHADOWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_kernel<G, SHADOWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (a.n + kTile - 1) / kTile;
-  fused_kernel<SHADOWS><<<blocks, kTile, smem, (cudaStream_t)stream>>>(
+  constexpr int rays = cw::kThreads / G;
+  fused_kernel<G, SHADOWS><<<(a.n + rays - 1) / rays, cw::kThreads, smem,
+                             (cudaStream_t)stream>>>(
       a, feats, live, rec, lo, hi, root, shade, sph, lights, cnst,
       out_direct, out_t, out_kind, out_index, out_unsh);
   return (int)cudaGetLastError();
 }
 
+template <int G>
+int launch_g(const FusedArgs& a, int use_shadows, const float* feats,
+             const float* live, const float* rec, const float* lo,
+             const float* hi, const float* root, const float* shade,
+             const float* sph, const float* lights, const float* cnst,
+             float* out_direct, float* out_t, int32_t* out_kind,
+             int32_t* out_index, float* out_unsh, void* stream) {
+  if (use_shadows)
+    return launch<G, true>(a, feats, live, rec, lo, hi, root, shade, sph,
+                           lights, cnst, out_direct, out_t, out_kind,
+                           out_index, out_unsh, stream);
+  return launch<G, false>(a, feats, live, rec, lo, hi, root, shade, sph,
+                          lights, cnst, out_direct, out_t, out_kind,
+                          out_index, out_unsh, stream);
+}
+
 }  // namespace
 
-// K7: feats [n, 10] (d, o x d, o, 1), live [n] (nullptr = all live), rec
-// [C, cs, 20] (the coarse clustering's records), lo/hi [C, 3] (widened cull
-// boxes), root [6], shade [T, 14], sph [S, 16], lights [L, 7] (the first Lp
-// point lights), cnst [6] (fused_math.cuh layouts). Writes direct [n, 3], t
-// [n], kind [n], index [n] and unsh [n, L]. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError().
+// K7 with G lanes per ray (8, 16 or 32; anything else returns
+// cudaErrorInvalidValue): feats [n, 10] (d, o x d, o, 1), live [n]
+// (nullptr = all live), rec [C, cs, 20] (the coarse clustering's
+// records), lo/hi [C, 3] (widened cull boxes), root [6], shade [T, 14],
+// sph [S, 16], lights [L, 7] (the first Lp point lights), cnst [6]
+// (fused_math.cuh layouts). Writes direct [n, 3], t [n], kind [n], index
+// [n] and unsh [n, L]. Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError().
+extern "C" int fused_shade_lanes(int G, int n, int C, int cs, int T, int S,
+                                 int Lp, int L, int use_shadows,
+                                 const float* feats, const float* live,
+                                 const float* rec, const float* lo,
+                                 const float* hi, const float* root,
+                                 const float* shade, const float* sph,
+                                 const float* lights, const float* cnst,
+                                 float* out_direct, float* out_t,
+                                 int32_t* out_kind, int32_t* out_index,
+                                 float* out_unsh, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const FusedArgs a{n, C, cs, T, S, Lp, L};
+#define K7_LAUNCH(g)                                                        \
+  case g:                                                                   \
+    return launch_g<g>(a, use_shadows, feats, live, rec, lo, hi, root,      \
+                       shade, sph, lights, cnst, out_direct, out_t,         \
+                       out_kind, out_index, out_unsh, stream);
+  switch (G) {
+    K7_LAUNCH(8)
+    K7_LAUNCH(16)
+    K7_LAUNCH(32)
+  }
+#undef K7_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7 with the lanes per ray cw::lanes_for(n) picks.
 extern "C" int fused_shade(int n, int C, int cs, int T, int S, int Lp, int L,
                            int use_shadows, const float* feats,
                            const float* live, const float* rec,
@@ -288,12 +294,8 @@ extern "C" int fused_shade(int n, int C, int cs, int T, int S, int Lp, int L,
                            float* out_t, int32_t* out_kind,
                            int32_t* out_index, float* out_unsh,
                            void* stream) {
-  const FusedArgs a{n, C, cs, T, S, Lp, L};
-  if (use_shadows)
-    return launch<true>(a, feats, live, rec, lo, hi, root, shade, sph,
-                        lights, cnst, out_direct, out_t, out_kind,
-                        out_index, out_unsh, stream);
-  return launch<false>(a, feats, live, rec, lo, hi, root, shade, sph, lights,
-                       cnst, out_direct, out_t, out_kind, out_index,
-                       out_unsh, stream);
+  return fused_shade_lanes(cw::lanes_for(n), n, C, cs, T, S, Lp, L,
+                           use_shadows, feats, live, rec, lo, hi, root, shade,
+                           sph, lights, cnst, out_direct, out_t, out_kind,
+                           out_index, out_unsh, stream);
 }

@@ -7,17 +7,22 @@
 
 #include "fused_math.cuh"
 
-// K7's contract (megakernel.cu `fused_shade`) over all records rec
-// [n_rec, 20]; T triangles in the shade table, S sphere rows, L lights of
-// which the first Lp are point lights.
-extern "C" void fused_shade_host(int n, int n_rec, int T, int S, int Lp,
-                                 int L, int use_shadows, const float* feats,
-                                 const float* live, const float* rec,
-                                 const float* shade, const float* sph,
-                                 const float* lights, const float* cnst,
-                                 float* out_direct, float* out_t,
-                                 int32_t* out_kind, int32_t* out_index,
-                                 float* out_unsh) {
+// K7's contract (megakernel.cu `fused_shade`) over all records rec [C, cs,
+// 20], split over G lanes per ray as the kernel splits them (1 <= G <= 32,
+// a power of two): the nearest hit with mm::lane_nearest and the lanes
+// merged after each cluster (mm::merge_lanes), and each shadow ray's
+// clusters with fm::lane_blocks, the lanes' bits ORed, up to the first
+// cluster with a blocker. G = 1 is the serial scan. T triangles in the
+// shade table, S sphere rows, L lights of which the first Lp are point
+// lights.
+extern "C" void fused_shade_host(int n, int C, int cs, int G, int T, int S,
+                                 int Lp, int L, int use_shadows,
+                                 const float* feats, const float* live,
+                                 const float* rec, const float* shade,
+                                 const float* sph, const float* lights,
+                                 const float* cnst, float* out_direct,
+                                 float* out_t, int32_t* out_kind,
+                                 int32_t* out_index, float* out_unsh) {
   for (int r = 0; r < n; ++r) {
     float* unsh = out_unsh + (size_t)r * L;
     if (live != nullptr && live[r] == 0.0f) {
@@ -29,16 +34,20 @@ extern "C" void fused_shade_host(int n, int n_rec, int T, int S, int Lp,
       continue;
     }
     const float* f = feats + (size_t)r * mm::FEAT;
-    float t_tri = mm::BIG;
-    int32_t i_tri = mm::BIG_I;
-    for (int j = 0; j < n_rec; ++j) {
-      const float* rj = rec + (size_t)j * mm::REC;
-      float u, v;
-      mm::nearest_update(
-          mm::brute_t(mm::planes(f, rj, -1.0f), true, fm::T_EPS, u, v),
-          (int32_t)rj[19], t_tri, i_tri);
+    float t_lane[32];
+    int32_t i_lane[32];
+    for (int g = 0; g < G; ++g) {
+      t_lane[g] = mm::BIG;
+      i_lane[g] = mm::BIG_I;
     }
-    i_tri = i_tri < T - 1 ? i_tri : T - 1;
+    for (int c = 0; c < C; ++c) {
+      for (int g = 0; g < G; ++g)
+        mm::lane_nearest<true>(f, rec + (size_t)c * cs * mm::REC, cs, g, G,
+                               -1.0f, true, fm::T_EPS, t_lane[g], i_lane[g]);
+      mm::merge_lanes(G, t_lane, i_lane);
+    }
+    const float t_tri = t_lane[0];
+    const int32_t i_tri = i_lane[0] < T - 1 ? i_lane[0] : T - 1;
     const float* o = f + 6;
     int32_t i_sph;
     const float t_sph =
@@ -58,8 +67,10 @@ extern "C" void fused_shade_host(int n, int n_rec, int T, int S, int Lp,
         if (!occ && s.kind > 0 && lr[6] > 0.0f) {
           float fs[mm::FEAT];
           fm::shadow_features(s, ldir, fs);
-          for (int j = 0; j < n_rec && !occ; ++j)
-            occ = fm::blocks(fs, rec + (size_t)j * mm::REC, bound);
+          for (int c = 0; c < C && !occ; ++c)
+            for (int g = 0; g < G; ++g)
+              occ = fm::lane_blocks(fs, rec + (size_t)c * cs * mm::REC, cs,
+                                    g, G, bound) || occ;
         }
         un = occ ? 0.0f : 1.0f;
       }

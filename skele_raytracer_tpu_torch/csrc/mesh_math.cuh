@@ -1,7 +1,10 @@
 // Per-ray triangle math of the mesh kernels (culled.cu: K3 nearest hit and
-// K4 any hit over Morton clusters; intersect.cu: K5 brute force), shared
-// by the CUDA kernels and by the host build the CPU tests run
-// (mesh_math_host.cpp, g++ -ffp-contract=off).
+// K4 any hit over Morton clusters; intersect.cu: K5 brute force;
+// megakernel.cu: K7), shared by the CUDA kernels and by the host builds
+// the CPU tests run (mesh_math_host.cpp, megakernel_host.cpp, g++
+// -ffp-contract=off). K3 and K7 split each cluster's records across the
+// lanes of a group (lane_nearest) and merge the lanes' answers
+// (merge_nearest); the host builds run the same split serially.
 //
 // The formula is the one the JAX package's Pallas kernels use
 // (skele_raytracer_tpu/ops/pallas/culled.py `_culled_tile.mt_block`,
@@ -88,6 +91,18 @@ MM_FN void nearest_update(float t, int32_t orig, float& t_best,
   }
 }
 
+// Two partial answers merged: the lexicographic minimum of (t, original
+// index), the tie-break of nearest_update (a miss is (BIG, BIG_I), so it
+// never wins a tie). The minimum does not depend on the order in which the
+// triangles were visited, so lanes that split a cluster's records and then
+// merge give the serial scan's answer to the bit.
+MM_FN void merge_nearest(float& t_a, int32_t& i_a, float t_b, int32_t i_b) {
+  if (t_b < t_a || (t_b == t_a && i_b < i_a)) {
+    t_a = t_b;
+    i_a = i_b;
+  }
+}
+
 // K4's any-hit test (culled.py occ_block): division free, with the t window
 // t_clip < t < bound as td > t_clip det^2 and td < bound det^2.
 MM_FN bool occludes(const Planes& p, float t_clip, float bound) {
@@ -136,6 +151,47 @@ MM_FN float inv_dir(float d) { return 1.0f / (fabsf(d) > 1e-30f ? d : 1e-30f); }
 // inverse.
 MM_FN int32_t ordered_key(int32_t bits) {
   return bits >= 0 ? bits : (bits ^ 0x7FFFFFFF);
+}
+
+// The kernels' shuffle butterfly over the (t, index) of G <= 32 lanes
+// (cluster_walk.cuh group_nearest), run serially for the host builds: at
+// step k, lane g merges what lane g ^ k held before the step.
+MM_FN void merge_lanes(int G, float* t, int32_t* i) {
+  for (int k = 1; k < G; k <<= 1) {
+    float t0[32];
+    int32_t i0[32];
+    for (int g = 0; g < G; ++g) {
+      t0[g] = t[g];
+      i0[g] = i[g];
+    }
+    for (int g = 0; g < G; ++g)
+      merge_nearest(t[g], i[g], t0[g ^ k], i0[g ^ k]);
+  }
+}
+
+// A triangle record as one 16-byte-aligned value: a kernel reads it from
+// shared memory with five 128-bit loads.
+struct alignas(16) Rec {
+  float v[REC];
+};
+
+// One lane's share of a staged cluster of cs records: lane `lane` of a
+// group of G lanes that carry the same ray tests records lane, lane + G,
+// lane + 2G, ... and folds them into its own (t_best, i_best). BRUTE picks
+// K7's t (brute_t) over K3's (culled_t).
+template <bool BRUTE>
+MM_FN void lane_nearest(const float* f, const float* recs, int cs, int lane,
+                        int G, float sign, bool clip, float t_clip,
+                        float& t_best, int32_t& i_best) {
+  const Rec* rr = reinterpret_cast<const Rec*>(recs);
+  for (int j = lane; j < cs; j += G) {
+    const Rec r = rr[j];
+    const Planes p = planes(f, r.v, sign);
+    float u, v;
+    const float t = BRUTE ? brute_t(p, clip, t_clip, u, v)
+                          : culled_t(p, clip, t_clip);
+    nearest_update(t, (int32_t)r.v[19], t_best, i_best);
+  }
 }
 
 }  // namespace mm

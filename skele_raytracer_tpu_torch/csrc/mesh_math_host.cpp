@@ -7,24 +7,33 @@
 
 #include "mesh_math.cuh"
 
-// K3's math: nearest (t, original index) over all records [T, 20].
-extern "C" void culled_nearest_host(int n, int T, int clip, float sign,
-                                    float t_clip, const float* feats,
-                                    const float* live, const float* rec,
-                                    float* out_t, int32_t* out_i) {
+// K3's math as the kernel splits it: rec [C, cs, 20] cluster by cluster,
+// each cluster's records split over G lanes (1 <= G <= 32, a power of two;
+// mm::lane_nearest), the lanes merged after each cluster
+// (mm::merge_lanes). G = 1 is the serial scan.
+extern "C" void culled_nearest_host(int n, int C, int cs, int G, int clip,
+                                    float sign, float t_clip,
+                                    const float* feats, const float* live,
+                                    const float* rec, float* out_t,
+                                    int32_t* out_i) {
   for (int r = 0; r < n; ++r) {
-    float t_best = mm::BIG;
-    int32_t i_best = mm::BIG_I;
+    float t[32];
+    int32_t i[32];
+    for (int g = 0; g < G; ++g) {
+      t[g] = mm::BIG;
+      i[g] = mm::BIG_I;
+    }
     if (live == nullptr || live[r] != 0.0f) {
       const float* f = feats + (size_t)r * mm::FEAT;
-      for (int j = 0; j < T; ++j) {
-        const float* rj = rec + (size_t)j * mm::REC;
-        mm::nearest_update(mm::culled_t(mm::planes(f, rj, sign), clip, t_clip),
-                           (int32_t)rj[19], t_best, i_best);
+      for (int c = 0; c < C; ++c) {
+        for (int g = 0; g < G; ++g)
+          mm::lane_nearest<false>(f, rec + (size_t)c * cs * mm::REC, cs, g, G,
+                                  sign, clip, t_clip, t[g], i[g]);
+        mm::merge_lanes(G, t, i);
       }
     }
-    out_t[r] = t_best;
-    out_i[r] = i_best;
+    out_t[r] = t[0];
+    out_i[r] = i[0];
   }
 }
 

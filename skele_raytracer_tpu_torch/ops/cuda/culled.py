@@ -8,8 +8,8 @@ clusters here (ops/geometry.py, ops/shading.py).
 
 The top-level functions keep the JAX package's contract: rays are sorted
 by a footprint key (`_footprint_sort_keys`: which of 16 superclusters the
-ray enters, then direction and origin) so that a 256-ray tile of the
-kernel enters few clusters, the kernel runs on the sorted batch, and the
+ray enters, then direction and origin) so that a tile of the kernel
+enters few clusters, the kernel runs on the sorted batch, and the
 results are scattered back. Dead rays (`live == 0`) return a miss; a live
 ray's answer depends on neither the order, the tiling, the clustering
 (coarse or fine) nor `live`.
@@ -19,6 +19,12 @@ the same contract done brute force: every clustered triangle record, rays
 in chunks, the formula of csrc/mesh_math.cuh summed in the same order
 (`intersect.planes_torch`), the same tie-break. The wrappers run them on
 CPU tensors and launch csrc/culled.cu on CUDA tensors, or raise.
+
+K3 (and K7, ops/cuda/megakernel.py) run G lanes per ray in blocks of
+THREADS threads (csrc/cluster_walk.cuh); `launch_shape` is the launch
+arithmetic the C launchers use: G from the wave's size (`lanes_for`), rays
+per block, blocks, and dynamic shared memory (a two-stage ring of cluster
+records, the box table and the shortlist).
 
 Not ported: `pack_cluster_blocks` (the triangle records of
 ops/accel.py replace its folded blocks), `_batched_launch`/`MAX_TILES`
@@ -50,6 +56,35 @@ _DEAD = _MASK  # sort key of a dead ray: sorts to the tail
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"culled_nearest": 0, "culled_occluded": 0}
+
+THREADS = 256  # threads per block of K3 and K7 (csrc/cluster_walk.cuh)
+LANES = (8, 16, 32)  # lanes per ray K3 and K7 are built for
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
+
+
+def lanes_for(n: int) -> int:
+    """Lanes per ray the C launchers pick for an n-ray wave
+    (csrc/cluster_walk.cuh `lanes_for`)."""
+    return 32 if n <= 16384 else 16
+
+
+def launch_shape(n: int, C: int, cs: int, lanes: int | None = None,
+                 extra_floats: int = 0):
+    """(lanes, rays per block, blocks, dynamic shared-memory bytes) of a K3
+    launch on n rays over C clusters of cs triangles (K7 adds its tables'
+    `extra_floats`), as csrc/cluster_walk.cuh computes them. Raises
+    ValueError for lanes the kernels are not built for and for a block
+    that would not fit in shared memory."""
+    g = lanes_for(n) if lanes is None else lanes
+    if g not in LANES:
+        raise ValueError(f"lanes per ray: one of {LANES}, got {g}")
+    rays = THREADS // g
+    smem = 4 * (2 * cs * REC + extra_floats + 6 * C + C + 1) + 4 * 3 * C
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{C} clusters of {cs} triangles need {smem} bytes "
+                         f"of shared memory per block, more than "
+                         f"{SMEM_LIMIT}")
+    return g, rays, -(-n // rays), smem
 
 
 def _ray_features10(o, d):
@@ -210,19 +245,29 @@ def culled_occluded_torch(feats, bound, rec, live=None, *, sign: float,
 _lib = None
 
 
+def bind(lib):
+    """Declares `culled_nearest` and `culled_occluded` of a loaded library
+    (their C signatures have not changed since the port's first mesh
+    kernels, so a library built from an earlier tree binds too)."""
+    lib.culled_nearest.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+    lib.culled_occluded.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+    for f in (lib.culled_nearest, lib.culled_occluded):
+        f.restype = ctypes.c_int
+    return lib
+
+
 def build_kernel():
     """Build (if needed) and load the CUDA kernel library."""
     global _lib
     if _lib is None:
         from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
 
-        lib = load_cuda("culled")
-        lib.culled_nearest.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
-        lib.culled_nearest.restype = ctypes.c_int
-        lib.culled_occluded.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
-        lib.culled_occluded.restype = ctypes.c_int
+        lib = bind(load_cuda("culled"))
+        lib.culled_nearest_lanes.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+        lib.culled_nearest_lanes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -259,24 +304,28 @@ def _launch_common(mesh, quirks: Quirks):
                                                           root)
 
 
-def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks):
+def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks,
+                          lanes: int | None = None):
     """K3 on CUDA tensors: (t, original index) as `culled_nearest_torch`;
-    counted in LAUNCHES["culled_nearest"]."""
+    counted in LAUNCHES["culled_nearest"]. `lanes`: lanes per ray (one of
+    LANES) in place of the launcher's own choice, for measurements."""
     _check_operands("culled_nearest", feats, mesh, [live])
     lib = build_kernel()
     dims, tabs = _launch_common(mesh, quirks)
     R = feats.shape[0]
+    launch_shape(R, dims[0], dims[1], lanes)
     t = torch.empty(R, dtype=torch.float32, device=feats.device)
     idx = torch.empty(R, dtype=torch.int32, device=feats.device)
     sign = 1.0 if quirks.reference_triangle_test else -1.0
     clip = not quirks.reference_triangle_test
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = lib.culled_nearest(
-            R, *dims, int(clip), sign, CLEAN_T_EPS, feats.data_ptr(),
+    args = (R, *dims, int(clip), sign, CLEAN_T_EPS, feats.data_ptr(),
             None if live is None else live.data_ptr(),
-            *(x.data_ptr() for x in tabs), t.data_ptr(), idx.data_ptr(),
-            ctypes.c_void_p(stream))
+            *(x.data_ptr() for x in tabs), t.data_ptr(), idx.data_ptr())
+    with torch.cuda.device(feats.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(feats.device).cuda_stream)
+        err = (lib.culled_nearest(*args, stream) if lanes is None
+               else lib.culled_nearest_lanes(lanes, *args, stream))
     if err != 0:
         raise RuntimeError(f"culled_nearest kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,15 +11,16 @@ clustering, spheres), the hit data, each light's shadow bit and the clean
 Blinn-Phong direct term.
 
 `fused_shade_forward` sorts the rays by the spatial key of ops/cuda/
-culled.py (dead rays last), runs the kernel (csrc/megakernel.cu) on CUDA
-tensors or its plain version `fused_shade_torch` on CPU tensors, and
-unsorts. Every table the kernel reads is packed from the scene on each call
-(`pack_shade_table` from the current vertices), so nothing goes stale when
-a fit moves the triangles. A live ray's outputs depend on neither the ray
-order, the tiling nor `live`; dead rays get the defaults (direct 0, t inf,
-kind 0, index 0, unshadowed 1). The JAX kernel writes defaults only for
-tiles that are dead as a whole, so the two packages are compared with
-`live=None`.
+culled.py (dead rays last), runs the kernel (csrc/megakernel.cu: several
+lanes per ray, as K3, with ops/cuda/culled.py `launch_shape`'s launch
+arithmetic) on CUDA tensors or its plain version `fused_shade_torch` on
+CPU tensors, and unsorts. Every table the kernel reads is packed from the
+scene on each call (`pack_shade_table` from the current vertices), so
+nothing goes stale when a fit moves the triangles. A live ray's outputs
+depend on neither the ray order, the tiling nor `live`; dead rays get the
+defaults (direct 0, t inf, kind 0, index 0, unshadowed 1). The JAX kernel
+writes defaults only for tiles that are dead as a whole, so the two
+packages are compared with `live=None`.
 
 `fused_shade_torch` is the kernel's contract done brute force over every
 clustered record, the formulas of csrc/fused_math.cuh in the same order:
@@ -35,7 +36,7 @@ constant gates) at the saved (kind, index, unshadowed), for `direct` and
 
 Not ported: the TPU's VMEM-resident and DMA-streaming variants
 (`RESIDENT_BUDGET_BYTES`, `mesh_resident_bytes`): the card has one mode,
-records read from L2 through shared memory.
+records staged from L2 into shared memory.
 """
 
 from __future__ import annotations
@@ -265,15 +266,25 @@ def fused_shade_torch(feats, live, rec, shade, sph, lights, n_point: int,
 _lib = None
 
 
+def bind(lib):
+    """Declares `fused_shade` of a loaded library (its C signature has not
+    changed since the kernel was first ported, so a library built from an
+    earlier tree binds too)."""
+    lib.fused_shade.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 16
+    lib.fused_shade.restype = ctypes.c_int
+    return lib
+
+
 def build_kernel():
     """Build (if needed) and load the CUDA kernel library."""
     global _lib
     if _lib is None:
         from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
 
-        lib = load_cuda("megakernel")
-        lib.fused_shade.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 16
-        lib.fused_shade.restype = ctypes.c_int
+        lib = bind(load_cuda("megakernel"))
+        lib.fused_shade_lanes.argtypes = ([ctypes.c_int] * 9
+                                          + [ctypes.c_void_p] * 16)
+        lib.fused_shade_lanes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -314,29 +325,32 @@ def _check_operands(feats, live, mesh, tables):
 
 
 def fused_shade_kernel(feats, live, mesh, shade, sph, lights, n_point: int,
-                       cnst, *, use_shadows: bool):
+                       cnst, *, use_shadows: bool, lanes: int | None = None):
     """K7 on CUDA tensors: the outputs of `fused_shade_torch` (with the
     clustered mesh `mesh` in place of its records); counted in
-    LAUNCHES["fused_shade"]."""
+    LAUNCHES["fused_shade"]. `lanes`: lanes per ray (one of culled.LANES)
+    in place of the launcher's own choice, for measurements."""
     lo, hi, root = _check_operands(feats, live, mesh,
                                    (shade, sph, lights, cnst))
     lib = build_kernel()
     R, L, dev = feats.shape[0], lights.shape[0], feats.device
+    culled.launch_shape(R, mesh.n_clusters, mesh.cluster_size, lanes,
+                        extra_floats=sph.shape[0] * SROW + L * LROW + 6)
     direct = torch.empty((R, 3), dtype=torch.float32, device=dev)
     t = torch.empty(R, dtype=torch.float32, device=dev)
     kind = torch.empty(R, dtype=torch.int32, device=dev)
     index = torch.empty(R, dtype=torch.int32, device=dev)
     unsh = torch.empty((R, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_shade(
-            R, mesh.n_clusters, mesh.cluster_size, shade.shape[0],
+    args = (R, mesh.n_clusters, mesh.cluster_size, shade.shape[0],
             sph.shape[0], n_point, L, int(use_shadows), feats.data_ptr(),
             None if live is None else live.data_ptr(),
             *(x.data_ptr() for x in (mesh.rec, lo, hi, root, shade, sph,
                                      lights, cnst, direct, t, kind, index,
-                                     unsh)),
-            ctypes.c_void_p(stream))
+                                     unsh)))
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = (lib.fused_shade(*args, stream) if lanes is None
+               else lib.fused_shade_lanes(lanes, *args, stream))
     if err != 0:
         raise RuntimeError(f"fused_shade kernel launch failed: CUDA error "
                            f"{err}")

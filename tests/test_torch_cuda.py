@@ -12,7 +12,10 @@ mesh kernels K3, K4 and K5 with chip_smoke.py's (hits, occlusion and
 indices equal on every ray, t within 1e-6 relative); K6 bitwise; K7 with
 chip_smoke.py's `check_fused` (kind, index and shadow bits equal on every
 ray, t within 1e-6 relative, direct within 1e-5 of its largest value,
-live rays unchanged by the live mask and the ray order).
+live rays unchanged by the live mask and the ray order). K3 and K7 also
+for every lane count per ray they are built for, at a wave size the
+launcher gives 32 lanes and one it gives 16, with a ragged last block and
+a dead tail (K3 bitwise, K7 as `fused_diff`).
 """
 
 import os
@@ -25,6 +28,7 @@ from chip_smoke import (
     case_scene_and_config,
     check_fused,
     compare,
+    fused_diff,
     fused_mesh_scene,
     nearest_diff,
     plain_culled_nearest,
@@ -143,6 +147,52 @@ def test_mesh_kernels_match_plain_versions(cuda, mode):
     want = plain_triangle_nearest(o, d, tris, quirks)
     nearest_diff(got[:3], want[:3])
     assert torch.equal(got[3][got[2]], want[3][want[2]])
+
+
+WAVES = [4096 + 13, 20000 + 7]  # 32 and 16 lanes per ray; ragged tiles
+
+
+def dead_tail(n, device):
+    """A live mask whose last third is dead (sorted waves end so)."""
+    return (torch.arange(n, device=device) < 2 * n // 3).float()
+
+
+@pytest.mark.parametrize("n", WAVES)
+def test_k3_lane_split_matches_plain_version(cuda, n):
+    o, d, _, _ = random_rays(n, 5, cuda)
+    feats = culled._ray_features10(o, d).contiguous()
+    live = dead_tail(n, cuda)
+    assert culled.lanes_for(n) == (32 if n < 16384 else 16)
+    tris = synthetic_mesh(1100, 9, cuda)
+    for cs in (accel.CLUSTER_SIZE, accel.FINE_CLUSTER_SIZE):
+        mesh = accel.build_clusters(*tris, cluster_size=cs)
+        for quirks in (PARITY, CLEAN):
+            parity = quirks.reference_triangle_test
+            want = culled.culled_nearest_torch(
+                feats, mesh.rec, live, sign=1.0 if parity else -1.0,
+                clip=not parity)
+            assert 0.1 < (want[0] < culled.BIG).float().mean() < 0.9
+            for lanes in (None, *culled.LANES):
+                got = culled.culled_nearest_kernel(feats, mesh, live,
+                                                   quirks=quirks, lanes=lanes)
+                assert torch.equal(got[0], want[0]), (cs, lanes)
+                assert torch.equal(got[1], want[1]), (cs, lanes)
+
+
+@pytest.mark.parametrize("n", WAVES)
+def test_k7_lane_split_matches_plain_version(cuda, n):
+    scene = fused_mesh_scene()
+    o, d, _, _ = random_rays(n, 17, cuda)
+    feats = culled._ray_features10(o * (10 / 12), d).contiguous()
+    live = dead_tail(n, cuda)
+    tabs = mk.pack_tables(scene)
+    for shadows in (True, False):
+        want = mk.fused_shade_torch(feats, live, scene.clusters.rec, *tabs,
+                                    use_shadows=shadows)
+        for lanes in (None, *culled.LANES):
+            got = mk.fused_shade_kernel(feats, live, scene.clusters, *tabs,
+                                        use_shadows=shadows, lanes=lanes)
+            fused_diff(f"shadows={shadows} lanes={lanes}", got, want)
 
 
 def test_mesh_kernels_reject_cpu_and_bad_operands(cuda):

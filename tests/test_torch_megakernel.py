@@ -190,7 +190,7 @@ def _fused_inputs(scene, n=900, seed=8, live_share=0.6):
 @pytest.fixture(scope="module")
 def fused_host_lib():
     return _host_lib("megakernel_host", "fused_shade_host",
-                     [ctypes.c_int] * 7 + [P] * 12)
+                     [ctypes.c_int] * 9 + [P] * 12)
 
 
 @pytest.mark.parametrize("scene_fn", [make_mesh_scene, _dir_scene],
@@ -208,8 +208,8 @@ def test_host_build_matches_fused_shade_plain(fused_host_lib, scene_fn):
                    torch.empty(R, dtype=torch.int32),
                    torch.empty(R, dtype=torch.int32), torch.empty(R, L)]
             fused_host_lib.fused_shade_host(
-                R, rec.shape[0], shade.shape[0], sph.shape[0], n_point, L,
-                int(shadows), feats.data_ptr(),
+                R, 1, rec.shape[0], 1, shade.shape[0], sph.shape[0],
+                n_point, L, int(shadows), feats.data_ptr(),
                 None if lv is None else lv.data_ptr(), rec.data_ptr(),
                 *(x.data_ptr() for x in (shade, sph, lights, cnst)),
                 *(x.data_ptr() for x in out))

@@ -63,7 +63,7 @@ def host_lib():
         pytest.skip("g++ is not installed")
     lib = _build.build_host("mesh_math_host", ["mesh_math_host.cpp"])
     lib.culled_nearest_host.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [P] * 5)
+        [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [P] * 5)
     lib.culled_occluded_host.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [P] * 5)
     lib.triangle_nearest_host.argtypes = (
@@ -97,7 +97,7 @@ def test_host_build_matches_culled_plain_versions(host_lib, mode):
         t = torch.empty(n)
         i = torch.empty(n, dtype=torch.int32)
         host_lib.culled_nearest_host(
-            n, T, int(clip), sign, CLEAN_T_EPS, feats.data_ptr(),
+            n, 1, T, 1, int(clip), sign, CLEAN_T_EPS, feats.data_ptr(),
             None if lv is None else lv.data_ptr(), rec.data_ptr(),
             t.data_ptr(), i.data_ptr())
         pt, pi = culled.culled_nearest_torch(feats, mesh.rec, lv, sign=sign,
