@@ -1,13 +1,15 @@
-// The cluster walk shared by the cluster-culled nearest-hit kernels on
-// Hopper (sm_90a): K3 (culled.cu `nearest_kernel`) and K7 (megakernel.cu
-// `fused_kernel`). Device code only; the per-pair math is in mesh_math.cuh
-// and fused_math.cuh, which the host builds test.
+// The cluster walk shared by the cluster-culled kernels on Hopper
+// (sm_90a): K3 (culled.cu `nearest_kernel`), K4 (culled.cu
+// `occluded_kernel`) and K7 (megakernel.cu `fused_kernel`). Device code
+// only; the per-pair math is in mesh_math.cuh and fused_math.cuh, which the
+// host builds test.
 //
 // * Groups. G consecutive threads (a power of two <= 32, inside one warp)
 //   carry one ray; a block of kThreads threads holds kThreads / G rays.
-//   Each lane tests every G-th record of a cluster (mm::lane_nearest), and
-//   the group merges its lanes' answers with a shuffle butterfly
-//   (group_nearest, group_any), so every lane holds the ray's answer.
+//   Each lane tests every G-th record of a cluster (mm::lane_nearest,
+//   mm::lane_occludes), and the group merges its lanes' answers with a
+//   shuffle butterfly (group_nearest, group_any), so every lane holds the
+//   ray's answer.
 // * The shortlist. The block's rays slab-test the cluster boxes (read once
 //   into shared memory), each lane a G-th of them; the tile minimum of the
 //   entry distances goes in with an integer atomicMin on order-preserving

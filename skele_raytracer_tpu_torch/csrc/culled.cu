@@ -49,10 +49,22 @@
 // after the product (about a third of each pair's work) stay on the FP32
 // cores anyway.
 //
-// K4, `occluded_kernel`, keeps the first port's schedule (it was
-// `culled_kernel<true>`): one thread per ray, 256-ray tiles, synchronous
-// staging, a ray stops at its first occluder and the tile once every ray
-// is occluded.
+// K4, `occluded_kernel<G>`, on the same walk. The first port ran one
+// thread per ray in 256-ray tiles with synchronous staging: a shadow wave
+// is mostly dead rays (84% of dragon's bounce shadow wave; the wrapper
+// sorts them last), so about 41 of its 256 blocks held a live ray, and a
+// live thread tested a cluster's 128 triangles one after another. Now:
+// * G lanes per ray, 256 / G rays per block (32, kOccludedLanes; 8 and
+//   16 only in the lane-sweep build, CULLED_LANE_SWEEP);
+//   each lane tests every G-th record of an entered cluster and stops at
+//   its first occluder (mm::lane_occludes), and the group ORs its lanes'
+//   bits after each cluster (cw::group_any), so every lane holds the ray's
+//   answer before the block votes on the early exit.
+// * The block's shortlist holds the clusters a live ray enters before its
+//   bound; the block stops once no live, unoccluded ray's min(root exit,
+//   bound) reaches the next entry. Occluded rays drop out.
+// * A block whose rays are all dead writes misses and returns before it
+//   arms the ring or reads the box table.
 //
 // Built with -fmad=false so every operation rounds as in the plain version.
 
@@ -62,8 +74,6 @@
 #include "mesh_math.cuh"
 
 namespace {
-
-constexpr int kTile = 256;  // K4: rays per block (one shortlist per tile)
 
 struct CullArgs {
   int n;             // rays
@@ -139,7 +149,8 @@ __global__ void __launch_bounds__(cw::kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kTile)
+template <int G>
+__global__ void __launch_bounds__(cw::kThreads)
     occluded_kernel(CullArgs a, const float* __restrict__ feats,
                     const float* __restrict__ bound,
                     const float* __restrict__ live,
@@ -149,58 +160,39 @@ __global__ void __launch_bounds__(kTile)
                     const float* __restrict__ root,
                     float* __restrict__ out_occ) {
   extern __shared__ float4 smem4[];
-  float* s_rec = reinterpret_cast<float*>(smem4);   // [cs * REC]
-  int32_t* s_key = reinterpret_cast<int32_t*>(s_rec + a.cs * mm::REC);  // [C]
-  int32_t* s_cand = s_key + a.C;                    // [C] entered, unsorted
-  int32_t* s_list = s_cand + a.C;                   // [C] sorted shortlist
-  float* s_ent = reinterpret_cast<float*>(s_list + a.C);  // [C + 1]
+  __shared__ uint64_t s_bar[2];
   __shared__ int s_n;
+  const int lane = threadIdx.x % G;
+  const int r = blockIdx.x * (cw::kThreads / G) + threadIdx.x / G;
+  const bool alive = r < a.n && (live == nullptr || live[r] != 0.0f);
+  // the dead tail: every thread of an all-dead block leaves here, before
+  // any mbarrier is armed or any copy started
+  if (!__syncthreads_or(alive)) {
+    if (r < a.n && lane == 0) out_occ[r] = 0.0f;
+    return;
+  }
+  const cw::Shared sh = cw::carve(smem4, a.C, a.cs, 0);
+  cw::Ring ring{sh.ring, s_bar, a.cs * mm::REC};
+  ring.init();
+  cw::load_boxes(sh, lo, hi, a.C);
 
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x * kTile + tid;
   float f[mm::FEAT];
-  bool alive = r < a.n && (live == nullptr || live[r] != 0.0f);
-  for (int k = 0; k < mm::FEAT; ++k) f[k] = alive ? feats[(size_t)r * mm::FEAT + k] : 0.0f;
+  for (int k = 0; k < mm::FEAT; ++k)
+    f[k] = alive ? feats[(size_t)r * mm::FEAT + k] : 0.0f;
   const float bnd = (alive && bound != nullptr) ? bound[r] : mm::BIG;
   const float o[3] = {f[6], f[7], f[8]};
   const float inv_d[3] = {mm::inv_dir(f[0]), mm::inv_dir(f[1]),
                           mm::inv_dir(f[2])};
 
-  // ---- the tile's shortlist ------------------------------------------
-  const int32_t key_big = mm::ordered_key(__float_as_int(mm::BIG));
-  for (int c = tid; c < a.C; c += kTile) s_key[c] = key_big;
-  if (tid == 0) s_n = 0;
-  __syncthreads();
-  if (alive) {
-    for (int c = 0; c < a.C; ++c) {
-      float tmin, tmax;
-      bool enter = mm::slab(o, inv_d, lo + 3 * c, hi + 3 * c, tmin, tmax);
-      if (!a.allow_negative) enter = enter && (tmax > 0.0f);
-      enter = enter && (tmin < bnd);
-      if (enter) atomicMin(&s_key[c], mm::ordered_key(__float_as_int(tmin)));
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < a.C; c += kTile)
-    if (s_key[c] < key_big) s_cand[atomicAdd(&s_n, 1)] = c;
-  __syncthreads();
-  const int n = s_n;
-  for (int i = tid; i < n; i += kTile) {
-    const int ci = s_cand[i];
-    const int32_t ki = s_key[ci];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) {
-      const int cj = s_cand[j];
-      const int32_t kj = s_key[cj];
-      rank += (kj < ki) || (kj == ki && cj < ci);
-    }
-    s_list[rank] = ci;
-    s_ent[rank] = __int_as_float(mm::ordered_key(ki));
-  }
-  if (tid == 0) s_ent[n] = mm::BIG;
-  __syncthreads();
+  const int n = cw::shortlist<G>(sh, a.C, alive, [&](int c, float& tmin) {
+    float tmax;
+    const bool e = mm::slab(o, inv_d, sh.lo + 3 * c, sh.hi + 3 * c, tmin,
+                            tmax);
+    return e && (a.allow_negative || tmax > 0.0f) && tmin < bnd;
+  }, &s_n);
 
-  // ---- settle bound: no hit lies past the ray's exit from the root box --
+  // settle bound: no occluder lies past the ray's exit from the root box
+  // or past its bound
   float texit;
   {
     float tmin, tmax;
@@ -208,34 +200,51 @@ __global__ void __launch_bounds__(kTile)
     texit = fminf(tmax, bnd);
   }
 
-  // ---- clusters front to back -----------------------------------------
   bool occ = false;
-  const int n4 = a.cs * mm::REC / 4;
-  for (int p = 0; p < n; ++p) {
-    const int c = s_list[p];
-    const float4* src = reinterpret_cast<const float4*>(rec) + (size_t)c * n4;
-    __syncthreads();  // the previous cluster's records are no longer read
-    for (int k = tid; k < n4; k += kTile) smem4[k] = src[k];
-    __syncthreads();
+  cw::walk(ring, rec, sh.list, n, [&](int p, const float* recs) {
     if (alive && !occ) {
+      const int c = sh.list[p];
       float tmin, tmax;
-      bool enter = mm::slab(o, inv_d, lo + 3 * c, hi + 3 * c, tmin, tmax);
-      enter = enter && (tmax > a.t_clip) && (tmin < bnd);
-      if (enter) {
-        for (int j = 0; j < a.cs; ++j) {
-          if (mm::occludes(mm::planes(f, s_rec + j * mm::REC, a.sign),
-                           a.t_clip, bnd)) {
-            occ = true;
-            break;
-          }
-        }
-      }
+      const bool enter = mm::slab(o, inv_d, sh.lo + 3 * c, sh.hi + 3 * c,
+                                  tmin, tmax) &&
+                         (tmax > a.t_clip) && (tmin < bnd);
+      if (enter)
+        occ = mm::lane_occludes(f, recs, a.cs, lane, G, a.sign, a.t_clip,
+                                bnd);
     }
-    const float next = s_ent[p + 1];
-    if (!__syncthreads_or(alive && !occ && texit >= next)) break;
-  }
+    occ = cw::group_any<G>(occ);
+    return alive && !occ && texit >= sh.ent[p + 1];
+  });
 
-  if (r < a.n) out_occ[r] = occ ? 1.0f : 0.0f;
+  if (r < a.n && lane == 0) out_occ[r] = occ ? 1.0f : 0.0f;
+}
+
+// Lanes per ray of K4 (culled_occluded_lanes_per_ray). A shadow wave's
+// live rays are few and sorted first, so what fills the card is the live
+// part, which the host does not know without a synchronisation. Tuned on
+// the H100 at dragon's chunk-37 shadow waves (chip_smoke.py `[tune]`,
+// device ms at 8 / 16 / 32 lanes): 65,536 rays, 15.9% live, 0.0881 /
+// 0.0648 / 0.0528; 4,096 rays, 53.2% live, 0.0164 / 0.0115 / 0.0100. 32
+// lanes at both sizes.
+constexpr int kOccludedLanes = 32;
+
+template <int G>
+int launch_occluded(const CullArgs& a, const float* feats, const float* bound,
+                    const float* live, const float* rec, const float* lo,
+                    const float* hi, const float* root, float* out_occ,
+                    void* stream) {
+  const size_t smem = cw::smem_bytes(a.C, a.cs, 0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        occluded_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  constexpr int rays = cw::kThreads / G;
+  occluded_kernel<G><<<(a.n + rays - 1) / rays, cw::kThreads, smem,
+                       (cudaStream_t)stream>>>(a, feats, bound, live, rec, lo,
+                                               hi, root, out_occ);
+  return (int)cudaGetLastError();
 }
 
 template <int G>
@@ -300,7 +309,8 @@ extern "C" int culled_nearest(int n, int C, int cs, int allow_negative,
                               root, out_t, out_i, stream);
 }
 
-// K4: is any triangle strictly inside (t_clip, bound) along each ray?
+// K4 with kOccludedLanes lanes per ray: is any triangle strictly inside
+// (t_clip, bound) along each ray? Operands as culled_nearest_lanes, plus
 // bound [n] (BIG = unbounded). Writes 1.0 / 0.0 into out_occ [n].
 extern "C" int culled_occluded(int n, int C, int cs, int allow_negative,
                                float sign, float t_clip, const float* feats,
@@ -310,17 +320,37 @@ extern "C" int culled_occluded(int n, int C, int cs, int allow_negative,
                                float* out_occ, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const CullArgs a{n, C, cs, allow_negative, 1, sign, t_clip};
-  const size_t smem = sizeof(float) * (size_t)a.cs * mm::REC +
-                      sizeof(int32_t) * 3 * (size_t)a.C +
-                      sizeof(float) * ((size_t)a.C + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        occluded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  occluded_kernel<<<(a.n + kTile - 1) / kTile, kTile, smem,
-                    (cudaStream_t)stream>>>(a, feats, bound, live, rec, lo, hi,
-                                            root, out_occ);
-  return (int)cudaGetLastError();
+  return launch_occluded<kOccludedLanes>(a, feats, bound, live, rec, lo, hi,
+                                         root, out_occ, stream);
 }
+
+extern "C" int culled_occluded_lanes_per_ray() { return kOccludedLanes; }
+
+#ifdef CULLED_LANE_SWEEP
+// The lane sweep, a library of its own (ops/cuda/_build.py
+// "culled_sweep"), for measurement and tests: K4 with G lanes per ray (8,
+// 16 or 32; anything else returns cudaErrorInvalidValue), operands as
+// culled_occluded.
+extern "C" int culled_occluded_lanes(int G, int n, int C, int cs,
+                                     int allow_negative, float sign,
+                                     float t_clip, const float* feats,
+                                     const float* bound, const float* live,
+                                     const float* rec, const float* lo,
+                                     const float* hi, const float* root,
+                                     float* out_occ, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const CullArgs a{n, C, cs, allow_negative, 1, sign, t_clip};
+  switch (G) {
+    case 8:
+      return launch_occluded<8>(a, feats, bound, live, rec, lo, hi, root,
+                                out_occ, stream);
+    case 16:
+      return launch_occluded<16>(a, feats, bound, live, rec, lo, hi, root,
+                                 out_occ, stream);
+    case 32:
+      return launch_occluded<32>(a, feats, bound, live, rec, lo, hi, root,
+                                 out_occ, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif

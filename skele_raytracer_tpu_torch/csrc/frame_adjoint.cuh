@@ -20,25 +20,45 @@
 //   adjoint of the incoming state. The primary hit and the camera row come
 //   last.
 //
+// The adjoints divide once per quotient and multiply by the reciprocal
+// where the derivative needs it again (1 / x^2, 0.5 / x), and spec_pow's
+// value and adjoint share one log and one exp (`spec_pow_vjp`): the
+// backward kernel's time is mostly IEEE division, square root and pow.
+// Each differs from the plain version's float32 rounding in the last bits,
+// well inside the tolerance the kernel is held to.
+//
 // Each forward function of frame_math.cuh that carries gradient has its
 // adjoint here as a function of its own (`normalize3_bwd`, `sphere_t_bwd`,
-// `mt_t_bwd`, `hit_geom_bwd`, `gather_mat_bwd`, `spec_pow_bwd`,
+// `mt_t_bwd`, `hit_geom_bwd`, `gather_mat_bwd`, `spec_pow_vjp`,
 // `shade_vjp`, `tangent_frame_bwd`, `sample_dir_bwd`, `offset_origin_bwd`,
-// camera in `sample_bwd`). Each follows PyTorch's derivative of the plain
+// camera in `finish_bwd`). Each follows PyTorch's derivative of the plain
 // version's operation (ops/cuda/pathtrace.py::frame_math_torch with
 // `recs_in`): clamp(min=c) passes the gradient where x >= c, sqrt where
 // its argument is positive, and discrete choices (record bits, fog
 // interactions, the tangent-frame branch, the triangle normal's flip) are
 // constants.
 //
-// Gradients leave through an accumulator `A` with two calls: `row(kind,
-// idx, v)` adds one primitive row (kind 1: sphere row of 16, kind 2:
-// triangle row of 24, 0: nothing), `dense(offset, v, n)` adds n values at
-// a flat offset that is the same for every sample (light rows, the misc
-// row, fog rows). Flat layout: `GradLayout`. The host build adds straight
-// into the table (frame_math_host.cpp); the kernel reduces a warp's
-// samples in a fixed order (pathtrace_bwd.cu). Every sample makes the same
-// sequence of calls, so a warp stays converged at each of them.
+// A sample is split over G lanes (`lane_bwd`, `finish_bwd`): each lane
+// replays the primary hit from its record and runs the adjoints of paths
+// lane, lane + G, ...; the lane `shade_lane(G)` also runs the primary
+// shade. The paths' adjoints are independent until they add into the
+// adjoint of the primary state (`PrimaryG`), which the group sums; lane 0
+// then finishes the primary hit and the camera row.
+//
+// Gradients leave through an accumulator `A`, one per thread:
+// * `dense(e, v, n)` adds n values at index e of the dense vector
+//   (`DenseLayout`: misc row 0, the fog rows' scattering, albedo and mask,
+//   the light rows), the entries every sample may reach, into the thread's
+//   own copy;
+// * `row_begin()` returns the lane's zeroed row of TRI_W floats, into which
+//   the adjoints of one record add; `row_commit(kind, idx)` adds it to the
+//   recorded primitive's table row (kind 1: sphere row of 16, kind 2:
+//   triangle row of 24, 0: nothing). Every lane of a warp makes the same
+//   sequence of row_commit calls (the kernel sums a warp's rows together),
+//   so a lane also runs, inactive, the paths it does not own;
+// * `active` false makes both add nothing.
+// The kernel (pathtrace_bwd.cu) and the host build (frame_math_host.cpp)
+// implement it with the same summation order.
 
 #pragma once
 
@@ -63,14 +83,66 @@ FM_FN GradLayout grad_layout(const Params& p) {
 }
 
 // Misc-table columns with a gradient: row 0 columns 0:18 (camera, ambient,
-// background); fog rows' scattering, albedo and mask (columns 2:7).
+// background); fog rows' scattering, albedo and mask (columns 2:7). Light
+// rows: columns 0:7.
 constexpr int MISC_G = 18;
 constexpr int FOG_G = 5;
+constexpr int LIGHT_G = 7;
 
-struct MiscG {
-  float row0[MISC_G];
-  float fog[2][FOG_G];
+// The dense vector: the gradient entries that every sample may reach, in
+// the order misc row 0 (MISC_G) | fog rows (F x FOG_G) | point lights (L x
+// LIGHT_G) | directional lights (LD x LIGHT_G).
+struct DenseLayout {
+  int misc, fog, pl, dl, total;
 };
+
+FM_FN DenseLayout dense_layout(const Params& p) {
+  DenseLayout d;
+  d.misc = 0;
+  d.fog = MISC_G;
+  d.pl = d.fog + p.F * FOG_G;
+  d.dl = d.pl + p.L * LIGHT_G;
+  d.total = d.dl + p.LD * LIGHT_G;
+  return d;
+}
+
+// The dense index of flat gradient entry e (GradLayout), or -1 where e is
+// a primitive row's entry or no gradient reaches it.
+FM_FN int dense_index(const GradLayout& g, const DenseLayout& d, int e) {
+  if (e < g.misc) return -1;
+  if (e < g.pl) {
+    const int r = (e - g.misc) / MISC_W, c = (e - g.misc) % MISC_W;
+    if (r == 0) return c < MISC_G ? d.misc + c : -1;
+    return (c >= 2 && c < 2 + FOG_G) ? d.fog + (r - 1) * FOG_G + c - 2 : -1;
+  }
+  const bool point = e < g.dl;
+  const int k = e - (point ? g.pl : g.dl);
+  const int r = k / LIGHT_W, c = k % LIGHT_W;
+  return c < LIGHT_G ? (point ? d.pl : d.dl) + r * LIGHT_G + c : -1;
+}
+
+// The backward kernel's block (pathtrace_bwd.cu; frame_math_host.cpp runs
+// the same schedule): BWD_THREADS threads, and the floats of shared memory
+// it carves: the scene tables, one row table per warp, one staged row per
+// thread, and one dense vector per thread, laid out [value][thread] at a
+// padded pitch. Each light adds LIGHT_W + LIGHT_G * BWD_DENSE_PITCH floats
+// (3.6 KiB), so ops/cuda/pathtrace.py's MAX_REPLAY_LIGHTS bounds the block.
+constexpr int BWD_THREADS = 128;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_DENSE_PITCH = BWD_THREADS + 1;
+constexpr int BWD_ROW_PITCH = TRI_W + 1;
+
+FM_FN long long bwd_smem_floats(const GradLayout& lay, const DenseLayout& d) {
+  return (long long)lay.total + (long long)BWD_WARPS * lay.misc +
+         (long long)BWD_WARPS * 32 * BWD_ROW_PITCH +
+         (long long)d.total * BWD_DENSE_PITCH;
+}
+
+template <class A>
+FM_FN void dense3(A& acc, int e, V3 v) {
+  const float f[3] = {v.x, v.y, v.z};
+  acc.dense(e, f, 3);
+}
 
 struct MatG {
   V3 amb, dif, spec, cen;
@@ -107,8 +179,8 @@ FM_FN V3 normalize3_bwd(V3 v, V3 gy) {
   if (!(nn > 0.0f)) return zero3();
   float inv = 1.0f / nn;
   float g_inv = dot3(gy, v);
-  float g_nn = -g_inv / (nn * nn);
-  float g_n2 = g_nn * 0.5f / nn;
+  float g_nn = -g_inv * (inv * inv);
+  float g_n2 = g_nn * 0.5f * inv;
   return add3(scale3(gy, inv), scale3(v, 2.0f * g_n2));
 }
 
@@ -147,9 +219,10 @@ FM_FN void sphere_t_bwd(const float* r, V3 o, V3 d, float gt, V3* go, V3* gd,
   float disc = b * b - a4 * c;
   float sq = pos_sqrt(disc);
   float num = -b - sq;
-  float inv2a = 0.5f / a;
+  float ia = 1.0f / a;
+  float inv2a = 0.5f * ia;
   float g_num = gt * inv2a;
-  float g_a = -(gt * num) * 0.5f / (a * a);
+  float g_a = -(gt * num) * inv2a * ia;
   float g_b = -g_num;
   float g_disc = disc > 0.0f ? -g_num * 0.5f / sq : 0.0f;
   g_b += 2.0f * b * g_disc;
@@ -294,9 +367,12 @@ FM_FN void hit_geom_bwd(const Params& p, const Tables& tb, V3 o, V3 d,
   if (h.hit) *gt += dot3(d, gx);
 }
 
-// Adjoint of spec_pow.
-FM_FN void spec_pow_bwd(V3 n, V3 view, V3 l, float power, float gs, V3* gn,
-                        V3* gview, V3* gl, float* gpow) {
+// spec_pow and its adjoint in one pass: returns spec_pow(n, view, l,
+// power), with pow(base, power) as exp(power log(base)), and adds the
+// adjoint of the cotangent gs into gn, gview, gl and gpow (d/dbase of
+// pow(base, power) as power pow(base, power) / base).
+FM_FN float spec_pow_vjp(V3 n, V3 view, V3 l, float power, float gs, V3* gn,
+                         V3* gview, V3* gl, float* gpow) {
   V3 h = add3(view, l);
   float h2 = h.x * h.x + h.y * h.y + h.z * h.z;
   float hn0 = pos_sqrt(h2);
@@ -304,36 +380,38 @@ FM_FN void spec_pow_bwd(V3 n, V3 view, V3 l, float power, float gs, V3* gn,
   float ihn = 1.0f / hn;
   float ndr = n.x * h.x * ihn + n.y * h.y * ihn + n.z * h.z * ihn;
   float ndoth = jmax(ndr, 0.0f);
-  if (!(ndoth > 0.0f)) return;  // spow = pow(...) * 0
+  if (!(ndoth > 0.0f)) return 0.0f;  // spow = pow(...) * 0
   float base = jmax(ndoth, 1e-30f);
-  float pw = powf(base, power);
-  *gpow += gs * pw * logf(base);
-  float g_base = gs * power * powf(base, power - 1.0f);
+  float lb = logf(base);
+  float pw = expf(power * lb);
+  *gpow += gs * pw * lb;
+  float g_base = gs * power * (pw / base);
   float g_ndr = clamp_bwd(ndr, 0.0f, clamp_bwd(ndoth, 1e-30f, g_base));
   *gn = add3(*gn, scale3(h, g_ndr * ihn));
   V3 g_h = scale3(n, g_ndr * ihn);
   float g_ihn = g_ndr * (n.x * h.x + n.y * h.y + n.z * h.z);
-  float g_hn0 = clamp_bwd(hn0, 1e-30f, -g_ihn / (hn * hn));
-  float g_h2 = h2 > 0.0f ? g_hn0 * 0.5f / hn0 : 0.0f;
+  float g_hn0 = clamp_bwd(hn0, 1e-30f, -g_ihn * (ihn * ihn));
+  float g_h2 = h2 > 0.0f ? g_hn0 * 0.5f * ihn : 0.0f;
   g_h = add3(g_h, scale3(h, 2.0f * g_h2));
   *gview = add3(*gview, g_h);
   *gl = add3(*gl, g_h);
+  return pw;
 }
 
 // Replay shading and its adjoint in one pass: returns shade's value at
 // (x, n, m) with the record's unshadowed bits as gates, and adds the
-// adjoint of the cotangent `g` to gx, gn, gm, the misc/fog accumulators
-// and (through acc.dense, once per light) the light rows.
+// adjoint of the cotangent `g` to gx, gn, gm and, through acc.dense, to
+// misc row 0, the fog rows and (once per light) the light rows.
 template <class A>
-FM_FN V3 shade_vjp(const Params& p, const Tables& tb, const GradLayout& lay,
+FM_FN V3 shade_vjp(const Params& p, const Tables& tb, const DenseLayout& dl,
                    V3 x, V3 n, const Mat& m, V3 pc, uint32_t idp,
                    uint32_t bounce, uint32_t rec, V3 g, V3* gx, V3* gn,
-                   MatG* gm, MiscG* gmisc, A& acc) {
+                   MatG* gm, A& acc) {
   const float* misc = tb.misc;
   V3 amb_s = load3(misc + 12);
   V3 val = mul3(amb_s, m.amb);
   gm->amb = add3(gm->amb, mul3(amb_s, g));
-  acc3(gmisc->row0 + 12, mul3(m.amb, g));
+  dense3(acc, dl.misc + 12, mul3(m.amb, g));
   if (!(p.point_on || p.dir_on)) return val;
   V3 cv = sub3(load3(misc), x);
   V3 view = normalize3(cv);
@@ -403,11 +481,8 @@ FM_FN V3 shade_vjp(const Params& p, const Tables& tb, const GradLayout& lay,
             g_scat += dot3(g_nl, du);
           }
         }
-        gmisc->fog[fi][0] += g_scat;
-        gmisc->fog[fi][1] += g_al.x;
-        gmisc->fog[fi][2] += g_al.y;
-        gmisc->fog[fi][3] += g_al.z;
-        gmisc->fog[fi][4] += g_mf;
+        const float fg5[FOG_G] = {g_scat, g_al.x, g_al.y, g_al.z, g_mf};
+        acc.dense(dl.fog + fi * FOG_G, fg5, FOG_G);
       }
       val = add3(val, v3(cr * fr * gate, cg * fg * gate, cb * fb * gate));
       lg[3] += g.x * gate * fr;
@@ -417,39 +492,39 @@ FM_FN V3 shade_vjp(const Params& p, const Tables& tb, const GradLayout& lay,
       g_int += g_db * ndotl;
       g_ndotl += g_db * intensity;
     } else {
-      float spow = spec_pow(n, view, ld, m.power);
       float gi = gate * intensity;
+      V3 g_a = scale3(g, gi);
+      V3 c3 = v3(cr, cg, cb);
+      float spow = spec_pow_vjp(n, view, ld, m.power,
+                                dot3(g_a, mul3(m.spec, c3)), gn, &g_view,
+                                &g_ld, &gm->power);
       V3 av = v3(m.dif.x * cr * ndotl + m.spec.x * cr * spow,
                  m.dif.y * cg * ndotl + m.spec.y * cg * spow,
                  m.dif.z * cb * ndotl + m.spec.z * cb * spow);
       val = add3(val, scale3(av, gi));
       float g_gi = dot3(g, av);
-      V3 g_a = scale3(g, gi);
-      V3 c3 = v3(cr, cg, cb);
       gm->dif = add3(gm->dif, scale3(mul3(g_a, c3), ndotl));
       gm->spec = add3(gm->spec, scale3(mul3(g_a, c3), spow));
       lg[3] += g_a.x * (m.dif.x * ndotl + m.spec.x * spow);
       lg[4] += g_a.y * (m.dif.y * ndotl + m.spec.y * spow);
       lg[5] += g_a.z * (m.dif.z * ndotl + m.spec.z * spow);
       g_ndotl += dot3(g_a, mul3(m.dif, c3));
-      float g_spow = dot3(g_a, mul3(m.spec, c3));
-      spec_pow_bwd(n, view, ld, m.power, g_spow, gn, &g_view, &g_ld,
-                   &gm->power);
       g_gate = g_gi * intensity;
       g_int = g_gi * gate;
     }
     lg[6] += g_gate * bit;
-    float g_dl = 2.0f * d_l * clamp_bwd(dl2, 1e-30f, -g_int / (mi * mi));
+    float g_dl =
+        2.0f * d_l * clamp_bwd(dl2, 1e-30f, -g_int * (intensity * intensity));
     float g_ndr = clamp_bwd(nd_raw, 0.0f, g_ndotl);
     *gn = add3(*gn, scale3(ld, g_ndr));
     g_ld = add3(g_ld, scale3(n, g_ndr));
     V3 g_lv = scale3(g_ld, inv_dl);
-    g_dl += clamp_bwd(d_l, 1e-30f, -dot3(g_ld, lv) / (m30 * m30));
-    float g_d2 = d2 > 0.0f ? g_dl * 0.5f / d_l : 0.0f;
+    g_dl += clamp_bwd(d_l, 1e-30f, -dot3(g_ld, lv) * (inv_dl * inv_dl));
+    float g_d2 = d2 > 0.0f ? g_dl * 0.5f * inv_dl : 0.0f;
     g_lv = add3(g_lv, scale3(lv, 2.0f * g_d2));
     acc3(lg, g_lv);
     *gx = sub3(*gx, g_lv);
-    acc.dense(lay.pl + li * LIGHT_W, lg, 7);
+    acc.dense(dl.pl + li * LIGHT_G, lg, LIGHT_G);
   }
   for (int li = 0; p.dir_on && li < p.LD; ++li) {
     const float* r = tb.dl + li * LIGHT_W;
@@ -460,30 +535,30 @@ FM_FN V3 shade_vjp(const Params& p, const Tables& tb, const GradLayout& lay,
     float gate = lm * bit;
     float nd_raw = dot3(n, ld);
     float ndotl = jmax(nd_raw, 0.0f);
-    float spow = spec_pow(n, view, ld, m.power);
+    float lg[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    V3 g_a = scale3(g, gate);
+    V3 c3 = v3(cr, cg, cb);
+    float g_ndr = clamp_bwd(nd_raw, 0.0f, dot3(g_a, mul3(m.dif, c3)));
+    V3 g_ld = scale3(n, g_ndr);
+    *gn = add3(*gn, scale3(ld, g_ndr));
+    float spow = spec_pow_vjp(n, view, ld, m.power,
+                              dot3(g_a, mul3(m.spec, c3)), gn, &g_view,
+                              &g_ld, &gm->power);
     V3 av = v3(m.dif.x * cr * ndotl + m.spec.x * cr * spow,
                m.dif.y * cg * ndotl + m.spec.y * cg * spow,
                m.dif.z * cb * ndotl + m.spec.z * cb * spow);
     val = add3(val, scale3(av, gate));
-    float lg[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    V3 g_a = scale3(g, gate);
-    V3 c3 = v3(cr, cg, cb);
     gm->dif = add3(gm->dif, scale3(mul3(g_a, c3), ndotl));
     gm->spec = add3(gm->spec, scale3(mul3(g_a, c3), spow));
     lg[3] += g_a.x * (m.dif.x * ndotl + m.spec.x * spow);
     lg[4] += g_a.y * (m.dif.y * ndotl + m.spec.y * spow);
     lg[5] += g_a.z * (m.dif.z * ndotl + m.spec.z * spow);
-    float g_ndr = clamp_bwd(nd_raw, 0.0f, dot3(g_a, mul3(m.dif, c3)));
-    V3 g_ld = scale3(n, g_ndr);
-    *gn = add3(*gn, scale3(ld, g_ndr));
-    spec_pow_bwd(n, view, ld, m.power, dot3(g_a, mul3(m.spec, c3)), gn,
-                 &g_view, &g_ld, &gm->power);
     acc3(lg, g_ld);
     lg[6] += dot3(g, av) * bit;
-    acc.dense(lay.dl + li * LIGHT_W, lg, 7);
+    acc.dense(dl.dl + li * LIGHT_G, lg, LIGHT_G);
   }
   V3 g_cv = normalize3_bwd(cv, g_view);
-  acc3(gmisc->row0 + 0, g_cv);
+  dense3(acc, dl.misc + 0, g_cv);
   *gx = sub3(*gx, g_cv);
   return val;
 }
@@ -504,7 +579,7 @@ FM_FN V3 tangent_frame_bwd(V3 n, V3 gpn, V3 gpb) {
     gn.z += gpn.x * inv_a;
     gn.x += -gpn.z * inv_a;
     float g_inv = gpn.x * n.z + gpn.z * -n.x;
-    float g_q = clamp_bwd(q, 1e-30f, -g_inv / (s * s) * 0.5f / s);
+    float g_q = clamp_bwd(q, 1e-30f, -g_inv * (inv_a * inv_a) * 0.5f * inv_a);
     gn.x += 2.0f * n.x * g_q;
     gn.z += 2.0f * n.z * g_q;
   } else {
@@ -514,7 +589,7 @@ FM_FN V3 tangent_frame_bwd(V3 n, V3 gpn, V3 gpb) {
     gn.z += -gpn.y * inv_b;
     gn.y += gpn.z * inv_b;
     float g_inv = gpn.y * -n.z + gpn.z * n.y;
-    float g_q = clamp_bwd(q, 1e-30f, -g_inv / (s * s) * 0.5f / s);
+    float g_q = clamp_bwd(q, 1e-30f, -g_inv * (inv_b * inv_b) * 0.5f * inv_b);
     gn.y += 2.0f * n.y * g_q;
     gn.z += 2.0f * n.z * g_q;
   }
@@ -625,24 +700,26 @@ FM_FN PathState advance(const Bounce& k) {
   return s;
 }
 
-// ---- one sample ---------------------------------------------------------
+// ---- one sample, split over G lanes -------------------------------------
 
-// Adds the gradient of <radiance(sample), g> with respect to the five
-// tables, for the sample's records rec[k * stride], through `acc`.
-template <class A>
-FM_FN void sample_bwd(const Params& p, const Tables& tb, uint32_t id, float xs,
-                      float ys, float cj, float ci, const int32_t* rec,
-                      int stride, V3 g, A& acc) {
-  const GradLayout lay = grad_layout(p);
+// The camera ray and the primary hit of a sample, replayed from its first
+// record (no scans).
+struct Primary {
+  V3 draw, d0;  // the camera ray's unnormalized and used directions
+  float u, v;   // its screen coordinates
+  RHit h;
+  Mat m;
+  V3 x, n;
+  float sf, mf;  // shades, misses
+};
+
+FM_FN Primary primary_replay(const Params& p, const Tables& tb, uint32_t id,
+                             float xs, float ys, float cj, float ci,
+                             uint32_t rec0) {
   const float* misc = tb.misc;
   V3 cam = load3(misc), right = load3(misc + 3), up = load3(misc + 6);
-  V3 cdir = load3(misc + 9), amb_s = load3(misc + 12), bg = load3(misc + 15);
-  MiscG gmisc;
-  for (int c = 0; c < MISC_G; ++c) gmisc.row0[c] = 0.0f;
-  for (int f = 0; f < 2; ++f)
-    for (int c = 0; c < FOG_G; ++c) gmisc.fog[f][c] = 0.0f;
-
-  // camera ray (frame_sample)
+  V3 cdir = load3(misc + 9);
+  Primary q;
   float jx = 0.5f, jy = 0.5f;
   if (p.grid > 0) {
     float r0, r1;
@@ -654,159 +731,243 @@ FM_FN void sample_bwd(const Params& p, const Tables& tb, uint32_t id, float xs,
       jy = (ci + r1) / (float)p.grid;
     }
   }
-  float u = (2.0f * ((xs + jx) * p.inv_w) - 1.0f) * p.angle * p.aspect;
-  float v = (1.0f - 2.0f * ((ys + jy) * p.inv_h)) * p.angle;
-  V3 draw = v3(cdir.x + u * right.x + v * up.x,
-               cdir.y + u * right.y + v * up.y,
-               cdir.z + u * right.z + v * up.z);
-  V3 d0 = p.unnormalized_dirs ? draw : normalize3(draw);
-
-  const uint32_t rec0 = (uint32_t)rec[0];
-  RHit h0 = replay_hit(p, tb, rec0, cam, d0);
-  Hit H0 = as_hit(h0);
-  Mat m0 = gather_mat(p, tb, H0);
-  V3 x0, n0;
-  hit_geom(p, tb, cam, d0, H0, m0.cen, &x0, &n0);
-  float sf0 = h0.shades ? 1.0f : 0.0f;
-  float mf0 = h0.hit ? 0.0f : 1.0f;
-
-  V3 g_x0 = zero3(), g_n0 = zero3();
-  MatG g_m0 = zero_matg();
-  V3 g_sh0 = scale3(g, sf0);  // cotangent of the primary shade
-  acc3(gmisc.row0 + 15, scale3(g, mf0));
-  if (p.mc) {
-    g_sh0 = v3(g.x * sf0 * m0.dif.x / PI_F, g.y * sf0 * m0.dif.y / PI_F,
-               g.z * sf0 * m0.dif.z / PI_F);
-  }
-  if (p.mc && p.D > 1) {
-    V3 pn0, pb0;
-    tangent_frame(n0, &pn0, &pb0);
-    V3 base = v3(TWO_PI_F * m0.dif.x * sf0, TWO_PI_F * m0.dif.y * sf0,
-                 TWO_PI_F * m0.dif.z * sf0);
-    V3 g_ar = scale3(g, p.inv_p);
-    V3 g_pn0 = zero3(), g_pb0 = zero3(), g_base = zero3();
-    const bool lights = p.point_on || p.dir_on;
-    PathState s1;
-    s1.x = x0;
-    s1.n = n0;
-    s1.pn = pn0;
-    s1.pb = pb0;
-    s1.dif = m0.dif;
-    s1.sf = sf0;
-    s1.T = base;
-    for (int path = 0; path < p.P; ++path) {
-      const uint32_t idp = id * (uint32_t)p.P + (uint32_t)path;
-      const int32_t* prec = rec + (1 + path * (p.D - 1)) * stride;
-      PathStateG gs = zero_stateg();  // adjoint of the state after bounce b
-      for (int b = p.D - 1; b >= 1; --b) {
-        PathState s = s1;
-        for (int bb = 1; bb < b; ++bb)
-          s = advance(bounce_fwd(p, tb, s, base, bb, idp,
-                                 (uint32_t)prec[(bb - 1) * stride]));
-        const uint32_t recb = (uint32_t)prec[(b - 1) * stride];
-        Bounce k = bounce_fwd(p, tb, s, base, b, idp, recb);
-        const bool last = b == p.D - 1;
-        Hit hb = as_hit(k.h);
-        float sfb = k.h.shades ? 1.0f : 0.0f;
-        float mfb = k.h.hit ? 0.0f : 1.0f;
-        V3 g_c = mul3(g_ar, k.T);
-        V3 g_dbv = v3(g_c.x * sfb * k.m.dif.x / PI_F,
-                      g_c.y * sfb * k.m.dif.y / PI_F,
-                      g_c.z * sfb * k.m.dif.z / PI_F);
-        MatG g_mb = zero_matg();
-        g_mb.dif = gs.dif;
-        V3 g_xb = gs.x, g_nb = gs.n;
-        if (!last) g_nb = add3(g_nb, tangent_frame_bwd(k.n, gs.pn, gs.pb));
-        V3 dbv;
-        if (lights) {
-          V3 pc = fog_point(p, hb, k.x, k.m.cen);
-          dbv = shade_vjp(p, tb, lay, k.x, k.n, k.m, pc, idp, (uint32_t)b,
-                          recb, g_dbv, &g_xb, &g_nb, &g_mb, &gmisc, acc);
-        } else {
-          dbv = mul3(amb_s, k.m.amb);
-          g_mb.amb = add3(g_mb.amb, mul3(amb_s, g_dbv));
-          acc3(gmisc.row0 + 12, mul3(k.m.amb, g_dbv));
-        }
-        V3 cval = v3(sfb * (dbv.x / PI_F * k.m.dif.x) + mfb * bg.x,
-                     sfb * (dbv.y / PI_F * k.m.dif.y) + mfb * bg.y,
-                     sfb * (dbv.z / PI_F * k.m.dif.z) + mfb * bg.z);
-        V3 g_T = add3(gs.T, mul3(g_ar, cval));
-        g_mb.dif = add3(g_mb.dif, scale3(mul3(g_c, dbv), sfb / PI_F));
-        acc3(gmisc.row0 + 15, scale3(g_c, mfb));
-
-        float grow[24];
-        for (int c = 0; c < 24; ++c) grow[c] = 0.0f;
-        V3 g_o = zero3(), g_d = zero3();
-        float g_t = 0.0f;
-        if (lights || !last)
-          hit_geom_bwd(p, tb, k.o, k.d, hb, k.m.cen, g_xb, g_nb, &g_o, &g_d,
-                       &g_t, &g_mb.cen, grow);
-        gather_mat_bwd(p, k.h, g_mb, grow);
-        replay_t_bwd(p, tb, k.h, k.o, k.d, g_t, &g_o, &g_d, grow);
-        acc.row(row_kind(p, k.h), k.h.idx, grow);
-
-        PathStateG gp = zero_stateg();
-        if (b == 1) {
-          g_base = add3(g_base, scale3(g_T, k.r1));
-        } else {
-          float f = TWO_PI_F * k.r1;
-          V3 gu = scale3(g_T, s.sf);
-          gp.T = v3(gu.x * (f * s.dif.x), gu.y * (f * s.dif.y),
-                    gu.z * (f * s.dif.z));
-          gp.dif = scale3(mul3(gu, s.T), f);
-        }
-        offset_origin_bwd(p, s.x, s.n, g_o, &gp.x, &gp.n);
-        sample_dir_bwd(p, k.r1, k.r2, s.n, s.pn, s.pb, g_d, &gp.n, &gp.pn,
-                       &gp.pb);
-        gs = gp;
-      }
-      g_x0 = add3(g_x0, gs.x);
-      g_n0 = add3(g_n0, gs.n);
-      g_pn0 = add3(g_pn0, gs.pn);
-      g_pb0 = add3(g_pb0, gs.pb);
-    }
-    g_n0 = add3(g_n0, tangent_frame_bwd(n0, g_pn0, g_pb0));
-    g_m0.dif = add3(g_m0.dif, scale3(g_base, TWO_PI_F * sf0));
-  }
-
-  // the primary hit
-  V3 d0v = shade_vjp(p, tb, lay, x0, n0, m0, fog_point(p, H0, x0, m0.cen), id,
-                     0, rec0, g_sh0, &g_x0, &g_n0, &g_m0, &gmisc, acc);
-  if (p.mc) g_m0.dif = add3(g_m0.dif, scale3(mul3(g, d0v), sf0 / PI_F));
-  float grow[24];
-  for (int c = 0; c < 24; ++c) grow[c] = 0.0f;
-  V3 g_o = zero3(), g_d = zero3();
-  float g_t = 0.0f;
-  hit_geom_bwd(p, tb, cam, d0, H0, m0.cen, g_x0, g_n0, &g_o, &g_d, &g_t,
-               &g_m0.cen, grow);
-  gather_mat_bwd(p, h0, g_m0, grow);
-  replay_t_bwd(p, tb, h0, cam, d0, g_t, &g_o, &g_d, grow);
-  acc.row(row_kind(p, h0), h0.idx, grow);
-
-  // camera row: origin, right, up, direction
-  V3 g_draw = p.unnormalized_dirs ? g_d : normalize3_bwd(draw, g_d);
-  acc3(gmisc.row0 + 0, g_o);
-  acc3(gmisc.row0 + 3, scale3(g_draw, u));
-  acc3(gmisc.row0 + 6, scale3(g_draw, v));
-  acc3(gmisc.row0 + 9, g_draw);
-  acc.dense(lay.misc, gmisc.row0, MISC_G);
-  for (int f = 0; f < p.F; ++f)
-    acc.dense(lay.misc + (1 + f) * MISC_W + 2, gmisc.fog[f], FOG_G);
+  q.u = (2.0f * ((xs + jx) * p.inv_w) - 1.0f) * p.angle * p.aspect;
+  q.v = (1.0f - 2.0f * ((ys + jy) * p.inv_h)) * p.angle;
+  q.draw = v3(cdir.x + q.u * right.x + q.v * up.x,
+              cdir.y + q.u * right.y + q.v * up.y,
+              cdir.z + q.u * right.z + q.v * up.z);
+  q.d0 = p.unnormalized_dirs ? q.draw : normalize3(q.draw);
+  q.h = replay_hit(p, tb, rec0, cam, q.d0);
+  const Hit H = as_hit(q.h);
+  q.m = gather_mat(p, tb, H);
+  hit_geom(p, tb, cam, q.d0, H, q.m.cen, &q.x, &q.n);
+  q.sf = q.h.shades ? 1.0f : 0.0f;
+  q.mf = q.h.hit ? 0.0f : 1.0f;
+  return q;
 }
 
-// The host accumulator: adds straight into the flat gradient table.
-struct HostAcc {
-  float* g;
-  GradLayout lay;
-  FM_FN void row(int kind, int idx, const float* v) {
-    if (kind == 1)
-      for (int c = 0; c < SPH_W; ++c) g[lay.sph + idx * SPH_W + c] += v[c];
-    else if (kind == 2)
-      for (int c = 0; c < TRI_W; ++c) g[lay.tri + idx * TRI_W + c] += v[c];
-  }
-  FM_FN void dense(int off, const float* v, int n) {
-    for (int c = 0; c < n; ++c) g[off + c] += v[c];
-  }
+// The adjoint of the primary state that a lane's paths and the primary
+// shade add to: the hit point, normal and tangent frame, the paths' base
+// throughput and the material (`m.cen` stays zero until finish_bwd).
+// PRIMARY_G floats of it are summed over the group.
+struct PrimaryG {
+  V3 x, n, pn, pb, base;
+  MatG m;
 };
+
+constexpr int PRIMARY_G = 25;
+
+FM_FN PrimaryG zero_primaryg() {
+  PrimaryG g;
+  g.x = g.n = g.pn = g.pb = g.base = zero3();
+  g.m = zero_matg();
+  return g;
+}
+
+template <class F>
+FM_FN void zip3(V3& a, const V3& b, F& f) {
+  f(a.x, b.x);
+  f(a.y, b.y);
+  f(a.z, b.z);
+}
+
+// f(a's float, b's float) for each of the PRIMARY_G summed floats: the
+// group sum adds another lane's share with it (the kernel's butterfly
+// shuffles, the host build adds the other lane's copy).
+template <class F>
+FM_FN void zip_primaryg(PrimaryG& a, const PrimaryG& b, F f) {
+  zip3(a.x, b.x, f);
+  zip3(a.n, b.n, f);
+  zip3(a.pn, b.pn, f);
+  zip3(a.pb, b.pb, f);
+  zip3(a.base, b.base, f);
+  zip3(a.m.amb, b.m.amb, f);
+  zip3(a.m.dif, b.m.dif, f);
+  zip3(a.m.spec, b.m.spec, f);
+  f(a.m.power, b.m.power);
+}
+
+// The lane of a group of G that shades the primary hit.
+FM_FN int shade_lane(int G) { return G - 1; }
+
+// Adjoint of one path's bounces 1..D-1 from the primary state s1: adds
+// each bounce's record row and dense gradients through `acc`; returns the
+// adjoint of s1's point, normal and tangent frame, with the adjoint of the
+// base throughput in .T.
+template <class A>
+FM_FN PathStateG path_bwd(const Params& p, const Tables& tb,
+                          const DenseLayout& dl, const PathState& s1, V3 base,
+                          V3 g_ar, uint32_t idp, const int32_t* prec,
+                          int stride, A& acc) {
+  const bool lights = p.point_on || p.dir_on;
+  const V3 amb_s = load3(tb.misc + 12), bg = load3(tb.misc + 15);
+  PathStateG gs = zero_stateg();  // adjoint of the state after bounce b
+  V3 g_base = zero3();
+  for (int b = p.D - 1; b >= 1; --b) {
+    PathState s = s1;
+    for (int bb = 1; bb < b; ++bb)
+      s = advance(bounce_fwd(p, tb, s, base, bb, idp,
+                             (uint32_t)prec[(bb - 1) * stride]));
+    const uint32_t recb = (uint32_t)prec[(b - 1) * stride];
+    Bounce k = bounce_fwd(p, tb, s, base, b, idp, recb);
+    const bool last = b == p.D - 1;
+    Hit hb = as_hit(k.h);
+    float sfb = k.h.shades ? 1.0f : 0.0f;
+    float mfb = k.h.hit ? 0.0f : 1.0f;
+    V3 g_c = mul3(g_ar, k.T);
+    V3 g_dbv = v3(g_c.x * sfb * k.m.dif.x / PI_F,
+                  g_c.y * sfb * k.m.dif.y / PI_F,
+                  g_c.z * sfb * k.m.dif.z / PI_F);
+    MatG g_mb = zero_matg();
+    g_mb.dif = gs.dif;
+    V3 g_xb = gs.x, g_nb = gs.n;
+    if (!last) g_nb = add3(g_nb, tangent_frame_bwd(k.n, gs.pn, gs.pb));
+    V3 dbv;
+    if (lights) {
+      V3 pc = fog_point(p, hb, k.x, k.m.cen);
+      dbv = shade_vjp(p, tb, dl, k.x, k.n, k.m, pc, idp, (uint32_t)b, recb,
+                      g_dbv, &g_xb, &g_nb, &g_mb, acc);
+    } else {
+      dbv = mul3(amb_s, k.m.amb);
+      g_mb.amb = add3(g_mb.amb, mul3(amb_s, g_dbv));
+      dense3(acc, dl.misc + 12, mul3(k.m.amb, g_dbv));
+    }
+    V3 cval = v3(sfb * (dbv.x / PI_F * k.m.dif.x) + mfb * bg.x,
+                 sfb * (dbv.y / PI_F * k.m.dif.y) + mfb * bg.y,
+                 sfb * (dbv.z / PI_F * k.m.dif.z) + mfb * bg.z);
+    V3 g_T = add3(gs.T, mul3(g_ar, cval));
+    g_mb.dif = add3(g_mb.dif, scale3(mul3(g_c, dbv), sfb / PI_F));
+    dense3(acc, dl.misc + 15, scale3(g_c, mfb));
+
+    float* grow = acc.row_begin();
+    V3 g_o = zero3(), g_d = zero3();
+    float g_t = 0.0f;
+    if (lights || !last)
+      hit_geom_bwd(p, tb, k.o, k.d, hb, k.m.cen, g_xb, g_nb, &g_o, &g_d,
+                   &g_t, &g_mb.cen, grow);
+    gather_mat_bwd(p, k.h, g_mb, grow);
+    replay_t_bwd(p, tb, k.h, k.o, k.d, g_t, &g_o, &g_d, grow);
+    acc.row_commit(row_kind(p, k.h), k.h.idx);
+
+    PathStateG gp = zero_stateg();
+    if (b == 1) {
+      g_base = scale3(g_T, k.r1);
+    } else {
+      float f = TWO_PI_F * k.r1;
+      V3 gu = scale3(g_T, s.sf);
+      gp.T = v3(gu.x * (f * s.dif.x), gu.y * (f * s.dif.y),
+                gu.z * (f * s.dif.z));
+      gp.dif = scale3(mul3(gu, s.T), f);
+    }
+    offset_origin_bwd(p, s.x, s.n, g_o, &gp.x, &gp.n);
+    sample_dir_bwd(p, k.r1, k.r2, s.n, s.pn, s.pb, g_d, &gp.n, &gp.pn,
+                   &gp.pb);
+    gs = gp;
+  }
+  gs.T = g_base;
+  return gs;
+}
+
+// One lane's share of the adjoint of <radiance(sample), g> with respect to
+// the five tables, for the sample's records rec[k * stride]: lane `lane` of
+// G runs paths lane, lane + G, ... (all lanes run ceil(P / G) of them, those
+// past P inactive) and, on shade_lane(G), the primary shade. Returns the
+// lane's share of the primary state's adjoint; acc.active is as on entry.
+template <class A>
+FM_FN PrimaryG lane_bwd(const Params& p, const Tables& tb, uint32_t id,
+                        float xs, float ys, float cj, float ci,
+                        const int32_t* rec, int stride, V3 g, int lane, int G,
+                        A& acc) {
+  const DenseLayout dl = dense_layout(p);
+  const uint32_t rec0 = (uint32_t)rec[0];
+  const Primary q = primary_replay(p, tb, id, xs, ys, cj, ci, rec0);
+  PrimaryG pg = zero_primaryg();
+  if (lane == shade_lane(G)) {
+    dense3(acc, dl.misc + 15, scale3(g, q.mf));
+    V3 g_sh0 = scale3(g, q.sf);  // cotangent of the primary shade
+    if (p.mc)
+      g_sh0 = v3(g.x * q.sf * q.m.dif.x / PI_F, g.y * q.sf * q.m.dif.y / PI_F,
+                 g.z * q.sf * q.m.dif.z / PI_F);
+    V3 d0v = shade_vjp(p, tb, dl, q.x, q.n, q.m,
+                       fog_point(p, as_hit(q.h), q.x, q.m.cen), id, 0, rec0,
+                       g_sh0, &pg.x, &pg.n, &pg.m, acc);
+    if (p.mc) pg.m.dif = add3(pg.m.dif, scale3(mul3(g, d0v), q.sf / PI_F));
+  }
+  if (!(p.mc && p.D > 1)) return pg;
+  PathState s1;
+  s1.x = q.x;
+  s1.n = q.n;
+  tangent_frame(q.n, &s1.pn, &s1.pb);
+  s1.dif = q.m.dif;
+  s1.sf = q.sf;
+  const V3 base = v3(TWO_PI_F * q.m.dif.x * q.sf, TWO_PI_F * q.m.dif.y * q.sf,
+                     TWO_PI_F * q.m.dif.z * q.sf);
+  s1.T = base;
+  const V3 g_ar = scale3(g, p.inv_p);
+  const bool owner = acc.active;
+  for (int k = 0; k < (p.P + G - 1) / G; ++k) {
+    const int path = k * G + lane;
+    const bool real = path < p.P;
+    acc.active = owner && real;
+    const int pi = real ? path : 0;
+    const PathStateG gs = path_bwd(
+        p, tb, dl, s1, base, g_ar, id * (uint32_t)p.P + (uint32_t)pi,
+        rec + (1 + pi * (p.D - 1)) * stride, stride, acc);
+    if (real) {
+      pg.x = add3(pg.x, gs.x);
+      pg.n = add3(pg.n, gs.n);
+      pg.pn = add3(pg.pn, gs.pn);
+      pg.pb = add3(pg.pb, gs.pb);
+      pg.base = add3(pg.base, gs.T);
+    }
+  }
+  acc.active = owner;
+  return pg;
+}
+
+// The group's last step, on every lane with the group's summed PrimaryG
+// (acc active on lane 0 only): the tangent frame's and base throughput's
+// adjoints, the primary hit's row, and the camera row.
+template <class A>
+FM_FN void finish_bwd(const Params& p, const Tables& tb, uint32_t id,
+                      float xs, float ys, float cj, float ci, uint32_t rec0,
+                      PrimaryG pg, A& acc) {
+  const DenseLayout dl = dense_layout(p);
+  const Primary q = primary_replay(p, tb, id, xs, ys, cj, ci, rec0);
+  if (p.mc && p.D > 1) {
+    pg.n = add3(pg.n, tangent_frame_bwd(q.n, pg.pn, pg.pb));
+    pg.m.dif = add3(pg.m.dif, scale3(pg.base, TWO_PI_F * q.sf));
+  }
+  const V3 cam = load3(tb.misc);
+  float* grow = acc.row_begin();
+  V3 g_o = zero3(), g_d = zero3();
+  float g_t = 0.0f;
+  hit_geom_bwd(p, tb, cam, q.d0, as_hit(q.h), q.m.cen, pg.x, pg.n, &g_o,
+               &g_d, &g_t, &pg.m.cen, grow);
+  gather_mat_bwd(p, q.h, pg.m, grow);
+  replay_t_bwd(p, tb, q.h, cam, q.d0, g_t, &g_o, &g_d, grow);
+  acc.row_commit(row_kind(p, q.h), q.h.idx);
+
+  // camera row: origin, right, up, direction
+  V3 g_draw = p.unnormalized_dirs ? g_d : normalize3_bwd(q.draw, g_d);
+  dense3(acc, dl.misc + 0, g_o);
+  dense3(acc, dl.misc + 3, scale3(g_draw, q.u));
+  dense3(acc, dl.misc + 6, scale3(g_draw, q.v));
+  dense3(acc, dl.misc + 9, g_draw);
+}
+
+// The key a committed row is grouped by: equal for the same table row,
+// 0 for none.
+FM_FN int row_key(int kind, int idx) {
+  return kind == 0 ? 0 : (kind << 16) | idx;
+}
+
+// Where a row key's values go in the primitive tables (sph | tri, the first
+// GradLayout.misc entries of the flat gradient), and how many.
+FM_FN int row_offset(const GradLayout& lay, int key, int* width) {
+  const int kind = key >> 16, idx = key & 0xFFFF;
+  *width = kind == 1 ? SPH_W : TRI_W;
+  return kind == 1 ? lay.sph + idx * SPH_W : lay.tri + idx * TRI_W;
+}
 
 }  // namespace fm

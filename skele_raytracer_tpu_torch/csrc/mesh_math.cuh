@@ -4,7 +4,8 @@
 // the CPU tests run (mesh_math_host.cpp, megakernel_host.cpp, g++
 // -ffp-contract=off). K3 and K7 split each cluster's records across the
 // lanes of a group (lane_nearest) and merge the lanes' answers
-// (merge_nearest); the host builds run the same split serially.
+// (merge_nearest), K4 likewise with lane_occludes and an OR; the host
+// builds run the same split serially.
 //
 // The formula is the one the JAX package's Pallas kernels use
 // (skele_raytracer_tpu/ops/pallas/culled.py `_culled_tile.mt_block`,
@@ -192,6 +193,20 @@ MM_FN void lane_nearest(const float* f, const float* recs, int cs, int lane,
                           : culled_t(p, clip, t_clip);
     nearest_update(t, (int32_t)r.v[19], t_best, i_best);
   }
+}
+
+// K4's share of a staged cluster for one lane: records lane, lane + G, ...
+// until the first that occludes inside (t_clip, bound). The group ORs its
+// lanes' answers (cluster_walk.cuh group_any); an OR does not depend on
+// which lane found the occluder, so any split gives the serial scan's bit.
+MM_FN bool lane_occludes(const float* f, const float* recs, int cs, int lane,
+                         int G, float sign, float t_clip, float bound) {
+  const Rec* rr = reinterpret_cast<const Rec*>(recs);
+  for (int j = lane; j < cs; j += G) {
+    const Rec r = rr[j];
+    if (occludes(planes(f, r.v, sign), t_clip, bound)) return true;
+  }
+  return false;
 }
 
 }  // namespace mm

@@ -37,18 +37,27 @@ extern "C" void culled_nearest_host(int n, int C, int cs, int G, int clip,
   }
 }
 
-// K4's math: any record hit inside (t_clip, bound[r]).
-extern "C" void culled_occluded_host(int n, int T, float sign, float t_clip,
-                                     const float* feats, const float* bound,
-                                     const float* live, const float* rec,
-                                     float* out_occ) {
+// K4's math as the kernel splits it: is any record of rec [C, cs, 20] hit
+// inside (t_clip, bound[r])? Cluster by cluster, each cluster's records
+// split over G lanes (1 <= G <= 32; mm::lane_occludes, each lane stopping
+// at its first occluder), the lanes' bits ORed after each cluster (the
+// kernel's group_any), stopping after the first cluster that holds an
+// occluder. G = 1 is the serial scan.
+extern "C" void culled_occluded_host(int n, int C, int cs, int G, float sign,
+                                     float t_clip, const float* feats,
+                                     const float* bound, const float* live,
+                                     const float* rec, float* out_occ) {
   for (int r = 0; r < n; ++r) {
     bool occ = false;
     if (live == nullptr || live[r] != 0.0f) {
       const float* f = feats + (size_t)r * mm::FEAT;
-      for (int j = 0; j < T && !occ; ++j)
-        occ = mm::occludes(mm::planes(f, rec + (size_t)j * mm::REC, sign),
-                           t_clip, bound[r]);
+      for (int c = 0; c < C && !occ; ++c) {
+        bool any = false;
+        for (int g = 0; g < G; ++g)
+          any = mm::lane_occludes(f, rec + (size_t)c * cs * mm::REC, cs, g, G,
+                                  sign, t_clip, bound[r]) || any;
+        occ = any;
+      }
     }
     out_occ[r] = occ ? 1.0f : 0.0f;
   }

@@ -129,9 +129,10 @@ def fit(scene, cfg: RenderConfig, target, *, steps: int = 100,
                  if trainable_paths else None)
     state = init_state(scene, learning_rate, trainable)
     # The mesh kernels (and their plain versions) read the Morton-clustered
-    # copy of the triangles: rebuild it, and the normal table, after every
-    # step that moves them, and after a restore (a checkpoint holds only
-    # the leaves).
+    # copy of the triangles: rebuild it, and the normal table, before the
+    # first step (the caller's scene, or a restored checkpoint, which holds
+    # only the leaves, may carry a copy of other vertices) and after every
+    # step that moves them.
     tri_moves = scene.triangles_active and (
         trainable_paths is None
         or any(p.startswith("triangles") for p in trainable_paths))
@@ -143,8 +144,8 @@ def fit(scene, cfg: RenderConfig, target, *, steps: int = 100,
         if restored is not None:
             state = restored
             start = int(state.step)
-            if tri_moves:
-                state = state._replace(scene=refresh_clusters(state.scene))
+    if tri_moves:
+        state = state._replace(scene=refresh_clusters(state.scene))
     target = _as_image(target, cfg.device)
     losses = []
     for i in range(start, steps):

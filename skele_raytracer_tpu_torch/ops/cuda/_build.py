@@ -85,11 +85,19 @@ def nvcc_path() -> str:
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
-# The CUDA libraries of the port: name -> sources in csrc/.
+# The CUDA libraries of the port: name -> sources in csrc/, and the extra
+# nvcc flags of those that need them. "culled_sweep" is culled.cu with K4's
+# lane sweep (`culled_occluded_lanes`), used only for measurement and tests.
 CUDA_LIBRARIES = {"pathtrace": ["pathtrace.cu"],
                   "pathtrace_bwd": ["pathtrace_bwd.cu"],
                   "culled": ["culled.cu"], "intersect": ["intersect.cu"],
-                  "megakernel": ["megakernel.cu"]}
+                  "megakernel": ["megakernel.cu"],
+                  "culled_sweep": ["culled.cu"]}
+LIBRARY_FLAGS = {"culled_sweep": ["-DCULLED_LANE_SWEEP"]}
+
+
+def _nvcc_flags(name: str) -> list[str]:
+    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, [])
 
 
 def build_all() -> dict[str, float]:
@@ -100,7 +108,7 @@ def build_all() -> dict[str, float]:
 
     nvcc = nvcc_path()
     with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
-        jobs = [pool.submit(_compile, nvcc, NVCC_FLAGS,
+        jobs = [pool.submit(_compile, nvcc, _nvcc_flags(name),
                             [CSRC / s for s in sources], name)
                 for name, sources in CUDA_LIBRARIES.items()]
         for job in jobs:
@@ -112,7 +120,7 @@ def load_cuda(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the CUDA library `name` of
     CUDA_LIBRARIES; cached per process."""
     if name not in _loaded:
-        so = _compile(nvcc_path(), NVCC_FLAGS,
+        so = _compile(nvcc_path(), _nvcc_flags(name),
                       [CSRC / s for s in CUDA_LIBRARIES[name]], name)
         _loaded[name] = ctypes.CDLL(str(so))
     return _loaded[name]

@@ -20,11 +20,12 @@ in chunks, the formula of csrc/mesh_math.cuh summed in the same order
 (`intersect.planes_torch`), the same tie-break. The wrappers run them on
 CPU tensors and launch csrc/culled.cu on CUDA tensors, or raise.
 
-K3 (and K7, ops/cuda/megakernel.py) run G lanes per ray in blocks of
+K3, K4 (and K7, ops/cuda/megakernel.py) run G lanes per ray in blocks of
 THREADS threads (csrc/cluster_walk.cuh); `launch_shape` is the launch
-arithmetic the C launchers use: G from the wave's size (`lanes_for`), rays
-per block, blocks, and dynamic shared memory (a two-stage ring of cluster
-records, the box table and the shortlist).
+arithmetic the C launchers use: G from the wave's size (`lanes_for`; K4:
+one count at every size, `occluded_lanes`), rays per block, blocks, and
+dynamic shared memory (a two-stage ring of cluster records, the box table
+and the shortlist).
 
 Not ported: `pack_cluster_blocks` (the triangle records of
 ops/accel.py replace its folded blocks), `_batched_launch`/`MAX_TILES`
@@ -58,7 +59,9 @@ _DEAD = _MASK  # sort key of a dead ray: sorts to the tail
 LAUNCHES = {"culled_nearest": 0, "culled_occluded": 0}
 
 THREADS = 256  # threads per block of K3 and K7 (csrc/cluster_walk.cuh)
-LANES = (8, 16, 32)  # lanes per ray K3 and K7 are built for
+# lanes per ray K3 and K7 are built for, and K4's lane sweep
+# (`build_sweep_kernel`); K4's launcher takes one count (`occluded_lanes`)
+LANES = (8, 16, 32)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 
 
@@ -272,6 +275,33 @@ def build_kernel():
     return _lib
 
 
+_sweep_lib = None
+
+
+def build_sweep_kernel():
+    """Build (if needed) and load K4's lane sweep, csrc/culled.cu built
+    with CULLED_LANE_SWEEP: `culled_occluded_lanes` runs K4 at any of
+    LANES lanes per ray, for measurements and tests."""
+    global _sweep_lib
+    if _sweep_lib is None:
+        from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
+
+        lib = load_cuda("culled_sweep")
+        lib.culled_occluded_lanes.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+        lib.culled_occluded_lanes.restype = ctypes.c_int
+        _sweep_lib = lib
+    return _sweep_lib
+
+
+def occluded_lanes() -> int:
+    """Lanes per ray K4's launcher takes at every wave size (csrc/culled.cu
+    kOccludedLanes, read from this tree's library)."""
+    from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
+
+    return int(load_cuda("culled").culled_occluded_lanes_per_ray())
+
+
 def _check_operands(name, feats, mesh, extra):
     dev = feats.device
     if dev.type != "cuda":
@@ -334,22 +364,26 @@ def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks,
 
 
 def culled_occluded_kernel(feats, bound, mesh, live, *, quirks: Quirks,
-                           t_clip: float):
+                           t_clip: float, lanes: int | None = None):
     """K4 on CUDA tensors: [R] bool as `culled_occluded_torch`; counted in
-    LAUNCHES["culled_occluded"]."""
+    LAUNCHES["culled_occluded"]. `lanes`: lanes per ray (one of LANES) in
+    place of the launcher's own, through the lane sweep's library, for
+    measurements."""
     _check_operands("culled_occluded", feats, mesh, [bound, live])
-    lib = build_kernel()
+    lib = build_kernel() if lanes is None else build_sweep_kernel()
     dims, tabs = _launch_common(mesh, quirks)
     R = feats.shape[0]
+    launch_shape(R, dims[0], dims[1], lanes or occluded_lanes())
     occ = torch.empty(R, dtype=torch.float32, device=feats.device)
     sign = 1.0 if quirks.reference_triangle_test else -1.0
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = lib.culled_occluded(
-            R, *dims, sign, t_clip, feats.data_ptr(), bound.data_ptr(),
+    args = (R, *dims, sign, t_clip, feats.data_ptr(), bound.data_ptr(),
             None if live is None else live.data_ptr(),
-            *(x.data_ptr() for x in tabs), occ.data_ptr(),
-            ctypes.c_void_p(stream))
+            *(x.data_ptr() for x in tabs), occ.data_ptr())
+    with torch.cuda.device(feats.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(feats.device).cuda_stream)
+        err = (lib.culled_occluded(*args, stream) if lanes is None
+               else lib.culled_occluded_lanes(lanes, *args, stream))
     if err != 0:
         raise RuntimeError(f"culled_occluded kernel launch failed: CUDA error "
                            f"{err}")

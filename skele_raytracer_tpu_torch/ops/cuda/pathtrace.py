@@ -98,6 +98,12 @@ def use_pathtrace(scene, cfg: RenderConfig) -> bool:
 # `_UNROLL_PATHS` and `_UNROLL_SPHERES`).
 MAX_REPLAY_PATHS = 32
 MAX_REPLAY_SPHERES = 64
+# Lights the backward kernel takes: it sums each light's gradient per
+# thread in shared memory, 3.6 KiB a light (csrc/frame_adjoint.cuh
+# `bwd_smem_floats`); at 32 lights and the largest tables above a block
+# needs 176 KiB of the H100's 227 KiB. The JAX package has no such limit;
+# with shadows the record bits allow 22 lights anyway.
+MAX_REPLAY_LIGHTS = 32
 
 
 def _n_records(cfg: RenderConfig) -> int:
@@ -108,14 +114,16 @@ def _n_records(cfg: RenderConfig) -> int:
 
 
 def _can_replay(scene, cfg: RenderConfig) -> bool:
-    """True when the records fit (the JAX package's `_can_replay`); else
-    gradients re-derive through the wavefront (`pathtrace_ids`)."""
+    """True when the records fit (the JAX package's `_can_replay`) and the
+    backward kernel takes the lights (MAX_REPLAY_LIGHTS); else gradients
+    re-derive through the wavefront (`pathtrace_ids`)."""
     L = scene.point_lights.mask.shape[0]
     LD = scene.directional_lights.mask.shape[0]
     return (
         cfg.paths_per_sample <= MAX_REPLAY_PATHS
         and scene.spheres.mask.shape[0] <= MAX_REPLAY_SPHERES
         and (not cfg.use_shadows or 10 + L + LD <= 32)
+        and L + LD <= MAX_REPLAY_LIGHTS
     )
 
 
@@ -997,6 +1005,24 @@ def build_kernel():
 
 _bwd_lib = None
 
+# Lanes per sample the backward kernel is measured at (any power of two up
+# to 32 runs; the launcher takes csrc/pathtrace_bwd.cu's kLanes, which
+# `pathtrace_bwd_lanes_for` returns).
+BWD_LANES = (1, 2, 4, 8, 16)
+
+
+def bind_backward(lib):
+    """Declares `pathtrace_backward` and `pathtrace_bwd_partial_floats` of
+    a loaded library (their C signatures have not changed since the port's
+    first backward kernel, so a library built from an earlier tree binds
+    too)."""
+    lib.pathtrace_backward.argtypes = (
+        [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17)
+    lib.pathtrace_backward.restype = ctypes.c_int
+    lib.pathtrace_bwd_partial_floats.argtypes = [ctypes.POINTER(_Params)]
+    lib.pathtrace_bwd_partial_floats.restype = ctypes.c_longlong
+    return lib
+
 
 def build_backward_kernel():
     """Build (if needed) and load the backward kernel library."""
@@ -1004,12 +1030,15 @@ def build_backward_kernel():
     if _bwd_lib is None:
         from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
 
-        lib = load_cuda("pathtrace_bwd")
-        lib.pathtrace_backward.argtypes = (
-            [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17)
-        lib.pathtrace_backward.restype = ctypes.c_int
-        lib.pathtrace_bwd_partial_floats.argtypes = [ctypes.POINTER(_Params)]
-        lib.pathtrace_bwd_partial_floats.restype = ctypes.c_longlong
+        lib = bind_backward(load_cuda("pathtrace_bwd"))
+        lib.pathtrace_backward_lanes.argtypes = (
+            [ctypes.c_int, ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 17)
+        lib.pathtrace_backward_lanes.restype = ctypes.c_int
+        lib.pathtrace_bwd_partial_floats_lanes.argtypes = [
+            ctypes.c_int, ctypes.POINTER(_Params)]
+        lib.pathtrace_bwd_partial_floats_lanes.restype = ctypes.c_longlong
+        lib.pathtrace_bwd_lanes_for.argtypes = [ctypes.POINTER(_Params)]
+        lib.pathtrace_bwd_lanes_for.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
 
@@ -1121,12 +1150,15 @@ def split_grads(flat, static: dict):
     return tuple(out)
 
 
-def pathtrace_backward(tabs, planes, recs, g, seed, static: dict):
+def pathtrace_backward(tabs, planes, recs, g, seed, static: dict,
+                       lanes: int | None = None):
     """The five table cotangents of sum(radiance * g) for the samples
     whose records the forward returned. CPU tensors run the plain version
     (`replay_table_grads`); CUDA tensors launch the backward kernel
     (csrc/pathtrace_bwd.cu: stage 1 and its reduce, counted once in
-    LAUNCHES["pathtrace_bwd"]) or raise."""
+    LAUNCHES["pathtrace_bwd"]) or raise. `lanes`: lanes per sample (a power
+    of two up to 32) in place of the launcher's own (1), for
+    measurements."""
     check_inputs(tabs, planes, static)
     dev = planes[0].device
     n = planes[0].shape[0]
@@ -1144,18 +1176,29 @@ def pathtrace_backward(tabs, planes, recs, g, seed, static: dict):
     args = _kernel_args(tabs, planes)
     params = _params(n, seed, static)
     total = sum(r * w for r, w in grad_layout(static))
-    partial = torch.empty(max(lib.pathtrace_bwd_partial_floats(
-        ctypes.byref(params)), 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        floats = (lib.pathtrace_bwd_partial_floats(ctypes.byref(params))
+                  if lanes is None else lib.pathtrace_bwd_partial_floats_lanes(
+                      lanes, ctypes.byref(params)))
+    if floats < 0:
+        raise ValueError(f"pathtrace backward kernel: no launch shape for "
+                         f"{lanes} lanes per sample and this scene's tables "
+                         f"(shared memory)")
+    partial = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
     flat = torch.empty(total, dtype=torch.float32, device=dev)
     gc = g.to(torch.float32)
     cot = [gc[:, c].contiguous() for c in range(3)]
     recs32 = recs.to(torch.int32).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pathtrace_backward(
-            ctypes.byref(params), *(t.data_ptr() for t in args),
-            recs32.data_ptr(), *(t.data_ptr() for t in cot),
-            partial.data_ptr(), flat.data_ptr(), ctypes.c_void_p(stream))
+        ptrs = ([t.data_ptr() for t in args] + [recs32.data_ptr()]
+                + [t.data_ptr() for t in cot]
+                + [partial.data_ptr(), flat.data_ptr()])
+        err = (lib.pathtrace_backward(ctypes.byref(params), *ptrs,
+                                      ctypes.c_void_p(stream))
+               if lanes is None else lib.pathtrace_backward_lanes(
+                   lanes, ctypes.byref(params), *ptrs,
+                   ctypes.c_void_p(stream)))
     if err != 0:
         raise RuntimeError(
             f"pathtrace backward kernel launch failed: CUDA error {err}")

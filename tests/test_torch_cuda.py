@@ -12,12 +12,16 @@ mesh kernels K3, K4 and K5 with chip_smoke.py's (hits, occlusion and
 indices equal on every ray, t within 1e-6 relative); K6 bitwise; K7 with
 chip_smoke.py's `check_fused` (kind, index and shadow bits equal on every
 ray, t within 1e-6 relative, direct within 1e-5 of its largest value,
-live rays unchanged by the live mask and the ray order). K3 and K7 also
-for every lane count per ray they are built for, at a wave size the
+live rays unchanged by the live mask and the ray order). K3, K4 and K7
+also for every lane count per ray they are built for, at a wave size the
 launcher gives 32 lanes and one it gives 16, with a ragged last block and
-a dead tail (K3 bitwise, K7 as `fused_diff`).
+a dead tail (K3 and K4 bitwise, K7 as `fused_diff`), and K4 on waves whose
+blocks are all dead; K2 at every lane count per sample it is measured at
+and at the most lights it takes (within 1e-3 of each table's largest plain
+gradient, two runs bitwise equal).
 """
 
+import ctypes
 import os
 
 import pytest
@@ -177,6 +181,110 @@ def test_k3_lane_split_matches_plain_version(cuda, n):
                                                    quirks=quirks, lanes=lanes)
                 assert torch.equal(got[0], want[0]), (cs, lanes)
                 assert torch.equal(got[1], want[1]), (cs, lanes)
+
+
+@pytest.mark.parametrize("n", WAVES)
+def test_k4_lane_split_matches_plain_version(cuda, n):
+    o, d, _, bound = random_rays(n, 5, cuda)
+    feats = culled._ray_features10(o, d).contiguous()
+    live = dead_tail(n, cuda)
+    tris = synthetic_mesh(1100, 9, cuda)
+    for cs in (accel.CLUSTER_SIZE, accel.FINE_CLUSTER_SIZE):
+        mesh = accel.build_clusters(*tris, cluster_size=cs)
+        for quirks in (PARITY, CLEAN):
+            parity = quirks.reference_triangle_test
+            t_clip = 1.0 if quirks.near_clip_t_le_1 else 1e-4
+            for bnd in (torch.full_like(bound, culled.BIG), bound):
+                want = culled.culled_occluded_torch(
+                    feats, bnd, mesh.rec, live, sign=1.0 if parity else -1.0,
+                    t_clip=t_clip)
+                assert 0.05 < want.float().mean() < 0.9
+                for lanes in (None, *culled.LANES):
+                    got = culled.culled_occluded_kernel(
+                        feats, bnd, mesh, live, quirks=quirks, t_clip=t_clip,
+                        lanes=lanes)
+                    assert torch.equal(got, want), (cs, lanes)
+
+
+def test_k4_dead_blocks_return_misses(cuda):
+    """Blocks whose rays are all dead leave before they arm the ring: an
+    all-dead wave, and one whose live rays fill only its first block, give
+    the plain version's answer (and the kernel runs to its end)."""
+    n = 20000
+    o, d, _, bound = random_rays(n, 6, cuda)
+    feats = culled._ray_features10(o, d).contiguous()
+    mesh = accel.build_clusters(*synthetic_mesh(1100, 9, cuda),
+                                cluster_size=accel.FINE_CLUSTER_SIZE)
+    for live in (torch.zeros(n, device=cuda),
+                 (torch.arange(n, device=cuda) < 5).float()):
+        want = culled.culled_occluded_torch(feats, bound, mesh.rec, live,
+                                            sign=-1.0, t_clip=1e-4)
+        for lanes in (None, *culled.LANES):
+            got = culled.culled_occluded_kernel(feats, bound, mesh, live,
+                                                quirks=CLEAN, t_clip=1e-4,
+                                                lanes=lanes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), lanes
+    assert not want[5:].any()
+
+
+def test_backward_kernel_lanes_match_plain_version(cuda):
+    """K2 at every lane count per sample it is measured at, on the fog and
+    two-light case and on a case whose paths (2) are fewer than the lanes:
+    within 1e-3 of each table's largest plain gradient plus 1e-5, two runs
+    bitwise equal."""
+    for name, scene_name, overrides in (KERNEL_CASES[1], KERNEL_CASES[2]):
+        scene, cfg = case_scene_and_config(scene_name, overrides, 32, 24,
+                                           cuda)
+        n = 32 * 24 * cfg.samples_per_pixel - 5  # a ragged last stride
+        tabs = pt._pack_tables(scene)
+        planes = pt._plane_inputs(cfg, torch.arange(n, device=cuda))
+        static = pt._static_kernel_args(scene, cfg)
+        *_, rec = pt.pathtrace_forward(tabs, planes, 5, static, records=True)
+        g = torch.randn(n, 3, device=cuda, generator=torch.Generator(
+            cuda).manual_seed(0))
+        plain = pt.replay_table_grads(tabs, planes, rec, g, 5, static)
+        lib = pt.build_backward_kernel()
+        assert lib.pathtrace_bwd_lanes_for(ctypes.byref(pt._params(
+            n, 5, static))) == 1
+        for lanes in (None, *pt.BWD_LANES, 32):
+            k = pt.pathtrace_backward(tabs, planes, rec, g, 5, static,
+                                      lanes=lanes)
+            k2 = pt.pathtrace_backward(tabs, planes, rec, g, 5, static,
+                                       lanes=lanes)
+            for a, b, w in zip(k, k2, plain):
+                assert torch.equal(a, b), (name, lanes)
+                assert float((a - w).abs().max()) <= 1e-3 * float(
+                    w.abs().max()) + 1e-5, (name, lanes)
+    with pytest.raises(ValueError, match="lanes"):
+        pt.pathtrace_backward(tabs, planes, rec, g, 5, static, lanes=3)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES[-2:],
+                         ids=[c[0] for c in KERNEL_CASES[-2:]])
+def test_backward_kernel_at_most_lights(cuda, case):
+    """K2 at the most lights the replay takes (22 with shadows, 32
+    without: its per-thread light sums fill 140-176 KiB of shared memory at
+    the largest tables): within 1e-3 of each table's largest plain gradient
+    plus 1e-5, two runs bitwise equal."""
+    name, scene_name, overrides = case
+    scene, cfg = case_scene_and_config(scene_name, overrides, 32, 24, cuda)
+    assert pt._can_replay(scene, cfg)
+    n = 32 * 24 * cfg.samples_per_pixel
+    tabs = pt._pack_tables(scene)
+    planes = pt._plane_inputs(cfg, torch.arange(n, device=cuda))
+    static = pt._static_kernel_args(scene, cfg)
+    *_, rec = pt.pathtrace_forward(tabs, planes, 5, static, records=True)
+    g = torch.randn(n, 3, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(0))
+    plain = pt.replay_table_grads(tabs, planes, rec, g, 5, static)
+    k = pt.pathtrace_backward(tabs, planes, rec, g, 5, static)
+    k2 = pt.pathtrace_backward(tabs, planes, rec, g, 5, static)
+    assert float(plain[3].abs().max()) > 0, name
+    for a, b, w in zip(k, k2, plain):
+        assert torch.equal(a, b), name
+        assert float((a - w).abs().max()) <= 1e-3 * float(
+            w.abs().max()) + 1e-5, name
 
 
 @pytest.mark.parametrize("n", WAVES)

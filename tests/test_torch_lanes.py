@@ -1,6 +1,6 @@
-"""The lane split of the cluster-culled nearest-hit kernels K3
-(csrc/culled.cu `nearest_kernel<G>`) and K7 (csrc/megakernel.cu
-`fused_kernel<G, shadows>`), on the CPU.
+"""The lane split of the cluster-culled kernels K3 (csrc/culled.cu
+`nearest_kernel<G>`), K4 (csrc/culled.cu `occluded_kernel<G>`) and K7
+(csrc/megakernel.cu `fused_kernel<G, shadows>`), on the CPU.
 
 On the card G lanes carry one ray: each tests every G-th record of a staged
 cluster (mesh_math.cuh `lane_nearest`, fused_math.cuh `lane_blocks`) and
@@ -15,6 +15,14 @@ tests/test_torch_megakernel.py). Cases: the 1,100-triangle mesh of
 chip_smoke.py, samples of dragon's primary and bounce waves, live masks,
 and duplicate triangles placed in different lanes (the exact-t tie must
 go to the lower original index whichever lane holds it).
+
+K4's lanes each test every G-th record of a cluster and stop at their
+first occluder; the group ORs the lanes' bits after each cluster
+(mesh_math.cuh `lane_occludes`, the host build `culled_occluded_host`).
+Held bitwise against `culled_occluded_torch` for G = 1 to 32 on the
+1,100-triangle mesh (bounded and unbounded rays, live masks), on sampled
+dragon shadow waves sorted as the wrapper sorts them (dead rays last), and
+with each cluster's occluder moved to another lane.
 
 Also the wrappers' launch arithmetic (`culled.launch_shape`), which the C
 launchers mirror.
@@ -51,9 +59,12 @@ def libs():
     k3 = _build.build_host("mesh_math_host", ["mesh_math_host.cpp"])
     k3.culled_nearest_host.argtypes = (
         [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [P] * 5)
+    k3.culled_occluded_host.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [P] * 5)
     k7 = _build.build_host("megakernel_host", ["megakernel_host.cpp"])
     k7.fused_shade_host.argtypes = [ctypes.c_int] * 9 + [P] * 12
-    for f in (k3.culled_nearest_host, k7.fused_shade_host):
+    for f in (k3.culled_nearest_host, k3.culled_occluded_host,
+              k7.fused_shade_host):
         f.restype = None
     return k3, k7
 
@@ -177,6 +188,125 @@ def test_k3_lanes_tie_goes_to_the_lower_index(libs, G, mode):
     idx = idx.tolist()
     assert sum(i in lower for i in idx) > 0.3 * len(idx)
     assert not any(i in higher for i in idx)
+
+
+def t_clip_of(quirks):
+    return 1.0 if quirks.near_clip_t_le_1 else CLEAN_T_EPS
+
+
+def lanes_k4(libs, feats, bound, rec, live, G, quirks):
+    """[R] bool of the host build's lane split: rec [C, cs, 20]."""
+    n = feats.shape[0]
+    rec = rec.contiguous()
+    occ = torch.empty(n)
+    libs[0].culled_occluded_host(
+        n, rec.shape[0], rec.shape[1], G,
+        1.0 if quirks.reference_triangle_test else -1.0, t_clip_of(quirks),
+        feats.data_ptr(), bound.contiguous().data_ptr(),
+        None if live is None else live.data_ptr(), rec.data_ptr(),
+        occ.data_ptr())
+    return occ > 0.5
+
+
+def assert_k4_lanes(libs, feats, bound, rec, live, G, quirks):
+    want = culled.culled_occluded_torch(
+        feats, bound, rec, live,
+        sign=1.0 if quirks.reference_triangle_test else -1.0,
+        t_clip=t_clip_of(quirks))
+    assert torch.equal(lanes_k4(libs, feats, bound, rec, live, G, quirks),
+                       want)
+    return want
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("G", GROUPS)
+def test_k4_lanes_match_plain_on_synthetic_mesh(libs, G, mode):
+    tris = synthetic_mesh(1100, 9, "cpu")
+    o, d, live, bound = random_rays(1500, 4, "cpu")
+    feats = culled._ray_features10(o, d).contiguous()
+    unbounded = torch.full_like(bound, culled.BIG)
+    for cs in (accel.CLUSTER_SIZE, accel.FINE_CLUSTER_SIZE):
+        mesh = accel.build_clusters(*tris, cluster_size=cs)
+        for bnd in (unbounded, bound):
+            for lv in (None, live):
+                occ = assert_k4_lanes(libs, feats, bnd, mesh.rec, lv, G,
+                                      MODES[mode])
+                assert 0.05 < occ.float().mean() < 0.95
+
+
+@pytest.fixture(scope="module")
+def dragon_k4_cases():
+    """Dragon's clean shadow waves toward its directional light, from the
+    primary hits and from the bounce hits of 128 sampled ids x 4 paths of
+    chunk 37, sorted as the wrapper sorts them (dead rays last), with the
+    fine clustering the wrapper uses: [(label, features, live, rec)]."""
+    scene, waves = dragon_waves(CLEAN, dragon_ids(4), 4)
+    mesh = scene.clusters_fine
+    cases = []
+    for label in ("primary_shadow", "shadow"):
+        o, d, live = waves[label]
+        order, lv = culled._sort_rays(o, d, mesh, CLEAN, live)
+        feats = culled._ray_features10(o, d)[order].contiguous()
+        cases.append((label, feats, lv.contiguous(), mesh.rec))
+    return cases
+
+
+@pytest.mark.parametrize("G", GROUPS)
+def test_k4_lanes_match_plain_on_dragon_shadow_waves(libs, dragon_k4_cases,
+                                                     G):
+    for label, feats, live, rec in dragon_k4_cases:
+        n = feats.shape[0]
+        assert 0.05 < float(live.mean()) < 0.95, label
+        assert not live[int(live.sum()):].any(), label  # a dead tail
+        for bnd in (torch.full((n,), culled.BIG),
+                    torch.linspace(0.01, 0.3, n)):
+            occ = assert_k4_lanes(libs, feats, bnd, rec, live, G, CLEAN)
+            assert occ.any() and not occ[live == 0].any(), label
+
+
+def moved_occluder_mesh(quirks):
+    """A clustered mesh in which each cluster's first real triangle is moved
+    to a later slot, a different one per cluster (so another lane than the
+    first for every G > 1), its old slot zeroed (det = 0: never occludes);
+    and rays aimed at the moved triangles from 5-15 units away. Returns
+    (records, features, the distance to each target). Parity rays aim into
+    the mirrored triangle its test accepts (u < 0)."""
+    tris = synthetic_mesh(600, 3, "cpu")
+    mesh = accel.build_clusters(*tris, cluster_size=accel.FINE_CLUSTER_SIZE)
+    rec = mesh.rec.clone()
+    C, cs = rec.shape[0], rec.shape[1]
+    u = -1.0 if quirks.reference_triangle_test else 1.0
+    rng = np.random.default_rng(8)
+    targets = []
+    for c in range(C):
+        real = (mesh.mask.reshape(C, cs)[c] > 0).nonzero().flatten()
+        j, k = int(real[0]), int(real[1 + c % (len(real) - 1)])
+        rec[c, j], rec[c, k] = torch.zeros(accel.REC), rec[c, j].clone()
+        v0 = mesh.v0[c * cs + j]
+        targets.append(v0 + (u * (mesh.v1[c * cs + j] - v0)
+                             + (mesh.v2[c * cs + j] - v0)) / 3)
+    targets = torch.stack(targets).repeat_interleave(6, 0)
+    d = torch.from_numpy(rng.normal(size=tuple(targets.shape)).astype(
+        np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    dist = torch.from_numpy(rng.uniform(5, 15, targets.shape[0]).astype(
+        np.float32))
+    o = targets - d * dist[:, None]
+    return rec, culled._ray_features10(o, d).contiguous(), dist
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("G", GROUPS)
+def test_k4_lanes_find_an_occluder_in_another_lane(libs, G, mode):
+    rec, feats, dist = moved_occluder_mesh(MODES[mode])
+    # past the target: occluded by the moved triangle, whichever lane
+    # holds it; short of it: only by what lies in front
+    past = assert_k4_lanes(libs, feats, dist * 1.5, rec, None, G,
+                           MODES[mode])
+    short = assert_k4_lanes(libs, feats, dist * 0.5, rec, None, G,
+                            MODES[mode])
+    assert float(past.float().mean()) > 0.9
+    assert float(short.float().mean()) < float(past.float().mean())
 
 
 def lanes_k7(libs, feats, live, mesh, tables, G, shadows):

@@ -65,7 +65,7 @@ def host_lib():
     lib.culled_nearest_host.argtypes = (
         [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [P] * 5)
     lib.culled_occluded_host.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [P] * 5)
+        [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [P] * 5)
     lib.triangle_nearest_host.argtypes = (
         [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [P] * 6)
     for f in (lib.culled_nearest_host, lib.culled_occluded_host,
@@ -109,7 +109,7 @@ def test_host_build_matches_culled_plain_versions(host_lib, mode):
     for bnd, lv in ((unbounded, None), (bound, live)):
         occ = torch.empty(n)
         host_lib.culled_occluded_host(
-            n, T, sign, t_clip, feats.data_ptr(), bnd.data_ptr(),
+            n, 1, T, 1, sign, t_clip, feats.data_ptr(), bnd.data_ptr(),
             None if lv is None else lv.data_ptr(), rec.data_ptr(),
             occ.data_ptr())
         want = culled.culled_occluded_torch(feats, bnd, mesh.rec, lv,

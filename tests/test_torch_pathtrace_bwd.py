@@ -7,9 +7,9 @@ independent replay oracle `_replay_radiance`.
 Tolerances:
 * records: bitwise, against the JAX package's kernel in Pallas interpret
   mode and against the host build of K1's records variant;
-* host adjoint vs autograd of the plain replay: per table,
-  |host - plain| <= 1e-4 * max|plain| + 1e-6 (the same float32 math in
-  another order);
+* host adjoint (on the kernel's schedule, csrc/frame_math_host.cpp) vs
+  autograd of the plain replay: per table, |host - plain| <= 1e-4 *
+  max|plain| + 1e-6 (the same float32 math in another order);
 * the oracle's radiance vs the records' forward: rtol 1e-4, atol 1e-5
   (tests/test_pathtrace.py's test_replay_value_matches_kernel);
 * fixed-topology finite differences of the sphere centres: relative
@@ -107,8 +107,11 @@ def host_lib():
         [ctypes.POINTER(pt._Params)] + [ctypes.c_void_p] * 14)
     lib.frame_math_host.restype = None
     lib.frame_math_host_bwd.argtypes = (
-        [ctypes.POINTER(pt._Params)] + [ctypes.c_void_p] * 15)
+        [ctypes.POINTER(pt._Params), ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 15)
     lib.frame_math_host_bwd.restype = None
+    lib.pathtrace_bwd_smem_bytes.argtypes = [ctypes.POINTER(pt._Params)]
+    lib.pathtrace_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -123,14 +126,17 @@ def host_records(lib, tabs, planes, seed, static):
     return out, rec
 
 
-def host_backward(lib, tabs, planes, rec, g, seed, static):
-    """The hand-written adjoint (K2's math), built for the host."""
+def host_backward(lib, tabs, planes, rec, g, seed, static, lanes=1,
+                  blocks=3):
+    """The hand-written adjoint (K2's math), built for the host and run on
+    the kernel's schedule: `blocks` blocks, `lanes` lanes per sample (by
+    default the launcher's 1)."""
     n = planes[0].shape[0]
     args = pt._kernel_args(tabs, planes)
     flat = torch.zeros(sum(r * w for r, w in pt.grad_layout(static)))
     cot = [g[:, c].contiguous() for c in range(3)]
-    lib.frame_math_host_bwd(ctypes.byref(pt._params(n, seed, static)),
-                            *(t.data_ptr() for t in args),
+    lib.frame_math_host_bwd(ctypes.byref(pt._params(n, seed, static)), lanes,
+                            blocks, *(t.data_ptr() for t in args),
                             rec.contiguous().data_ptr(),
                             *(t.data_ptr() for t in cot), flat.data_ptr())
     return pt.split_grads(flat, static)
