@@ -43,7 +43,8 @@ Phases, in order; any failure raises and exits nonzero:
    `[sass]`: the scan loops of K1 and K5 in the built code (cuobjdump),
    and the tensor-core instructions (HMMA) of the lab's L1, L2, L5 and L6
    at passes 3, which every such instance must hold, with the registers
-   and spills of L5 at G 4, L6 and L1 at G 4 side by side.
+   and spills of every L3 and L5 instance (the split walk), L6 and L1 at
+   G 4 side by side.
 3. kernel vs plain on the card: K1 on each of KERNEL_CASES (at most 0.5%
    of values off by more than 1e-4, frame means within 5e-4: the
    tolerance of tests/test_pathtrace.py), its records bitwise, and K2
@@ -99,9 +100,13 @@ Phases, in order; any failure raises and exits nonzero:
    kernel_lab.py, lab_v5.py, lab_probe.py) on dragon's bounce batch,
    each kernel against its plain version (full FP32 bitwise; bf16x3 hit
    flags on >= 99.9% of rays, indices equal where t agrees to 1e-4) and
-   against K3 (the full-FP32 walks bitwise), timed beside its bound; L5's
-   and L6's rows bitwise their L3 twins on the live rays; and the
-   cs-sweep. `[median]` (`phase_median`): the lab batch on Morton runs and
+   against K3 (the full-FP32 walks bitwise), timed beside its bound (device
+   ms per call: the sum of its kernels, three for L3's and L5's split
+   walk, whose rows also print their work items and the same kernel at
+   one item per tile, bitwise equal on every ray, and the time one block
+   per tile took at commit 7caea27; L5 also against L3 at one block per
+   SM); L5's and L6's rows bitwise their L3 twins on the live rays; and
+   the cs-sweep. `[median]` (`phase_median`): the lab batch on Morton runs and
    on the recursive object median, each one's shortlists and K3's time,
    K3's answers bitwise equal after the unsort. `[fd]` (`phase_fd`): the
    fixed-topology check at bench.py's 96x54 spheres1 frame, K1's records
@@ -170,7 +175,9 @@ and records at both 1080p headlines, K5's t, index, u, v at its chunk,
 K7's outputs at dragon's chunk 37, the fused and split dragon frames) and
 timed in turns with them on the same inputs; `render` and a `train_step`
 at the 1080p headlines run through each tree's K1 in turns, and the fused
-and split dragon frames through each tree's kernels.
+and split dragon frames through each tree's kernels; `[sass]` compares the
+kernel lab's tile-walk instances (L1, L2, L4, L6) with that tree's
+culled_lab.cu, function by function (`lab_sass_against`).
 
 Nothing here imports JAX. Scratch files go under build/smoke/.
 """
@@ -565,6 +572,7 @@ class ParentKernels:
 
         from skele_raytracer_tpu_torch.ops.cuda import _build
 
+        self.csrc = csrc
         out = os.path.join(REPO, "build", "parent_kernels")
         os.makedirs(out, exist_ok=True)
         self.paths = {name: os.path.join(out, f"{name}.so")
@@ -888,18 +896,81 @@ def phase_sass(parent=None):
 
 
 # the lab instances whose registers and spills `phase_sass_lab` prints side
-# by side: L5 at G 4 (one stage of 16-row blocks), L6, L1 at G 4
-LAB_PTXAS = ("lab_flat_kernel<3, 4>", "lab_presplit_kernel<2>",
-             "lab_v6_kernel<3, 4>")
+# by side: every instance of the split walk (L3, L5; L5 at G 4 holds one
+# stage of 16-row blocks), L6, L1 at G 4
+LAB_PTXAS = tuple(f"{k}_kernel<{p}, {g}>" for k in ("lab_base", "lab_flat")
+                  for p in (6, 3) for g in (1, 2, 4)) + (
+    "lab_presplit_kernel<2>", "lab_v6_kernel<3, 4>")
 
 
-def phase_sass_lab():
+# the lab kernels that walk a tile per block (L1, L2, L4, L6)
+LAB_TILE_KERNELS = ("lab_v6_kernel", "lab_v5_kernel", "lab_probe_kernel",
+                    "lab_presplit_kernel")
+
+
+def sass_functions(path):
+    """{kernel label: [its SASS instructions, without addresses and
+    encodings]} of a built library, from `cuobjdump -sass`; None where the
+    toolkit has no cuobjdump."""
+    import re
+
+    from skele_raytracer_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for body in text.split("Function : ")[1:]:
+        head, rest = body.split("\n", 1)
+        name = kernel_label(head)
+        if name:
+            out[name] = [m.group(1) for m in (
+                re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+                for line in rest.splitlines()) if m]
+    return out
+
+
+def lab_sass_against(csrc):
+    """`[sass]`: the tile-walk instances (LAB_TILE_KERNELS) of this tree's
+    culled_lab library against those of an earlier tree's culled_lab.cu
+    (`csrc`, built with this tree's nvcc flags), function by function:
+    identical or not, with their instruction counts. Returns the names
+    that differ."""
+    from skele_raytracer_tpu_torch.ops.cuda import _build
+
+    out = os.path.join(REPO, "build", "parent_kernels", "culled_lab.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out,
+         os.path.join(csrc, "culled_lab.cu")], capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"parent culled_lab.cu build failed:\n{proc.stderr}")
+    mine = sass_functions(_build.build_cuda("culled_lab"))
+    theirs = sass_functions(out)
+    if mine is None:
+        print("[sass] culled_lab against the parent: not measured (no "
+              "cuobjdump)")
+        return []
+    names = sorted(n for n in theirs if n.startswith(LAB_TILE_KERNELS))
+    differ = [n for n in names if mine.get(n) != theirs[n]]
+    print(f"[sass] culled_lab's tile-walk instances against the parent's "
+          f"({csrc}): {len(names) - len(differ)} of {len(names)} identical"
+          + "".join(f"; {n} differs ({len(mine.get(n, []))} against "
+                    f"{len(theirs[n])} instructions)" for n in differ))
+    return differ
+
+
+def phase_sass_lab(parent=None):
     """`[sass]`: the tensor-core instructions (HMMA) of every instance of
     the kernel lab's L1, L2, L5 and L6 (culled_lab.cu lab_v6_kernel,
     lab_v5_kernel, lab_flat_kernel, lab_presplit_kernel) in the built
     library: each bf16x3 (passes 3) instance must hold them, which shows
-    that its product runs on the tensor cores; and the registers, spills
-    and static shared memory of LAB_PTXAS from the build's ptxas lines."""
+    that its product runs on the tensor cores; the registers, spills
+    and static shared memory of LAB_PTXAS from the build's ptxas lines;
+    with `parent`, `lab_sass_against` its csrc."""
     from skele_raytracer_tpu_torch.ops.cuda import _build
 
     log = _build.build_logs.get("culled_lab")
@@ -907,20 +978,16 @@ def phase_sass_lab():
         line.split(":", 1)[0]: line for line in ptxas_summary(log)}
     for name in LAB_PTXAS:
         print(f"[sass] {lines.get(name, name + ': not measured (no build log)')}")
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    if not os.path.exists(tool):
+    funcs = sass_functions(_build.build_cuda("culled_lab"))
+    if funcs is None:
         print("[sass] culled_lab: not measured (no cuobjdump)")
         return
-    text = subprocess.run([tool, "-sass", str(_build.build_cuda("culled_lab"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts = {}
-    for body in text.split("Function : ")[1:]:
-        name = kernel_label(body.split("\n", 1)[0])
-        if name and name.startswith(("lab_v6_kernel", "lab_v5_kernel",
-                                     "lab_flat_kernel",
-                                     "lab_presplit_kernel")):
-            counts[name] = body.count("HMMA")
+    if parent is not None:
+        lab_sass_against(parent.csrc)
+    counts = {name: sum("HMMA" in op for op in ops)
+              for name, ops in funcs.items()
+              if name.startswith(("lab_v6_kernel", "lab_v5_kernel",
+                                  "lab_flat_kernel", "lab_presplit_kernel"))}
     print("[sass] culled_lab HMMA instructions: "
           + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
     p3 = {k: v for k, v in counts.items()
@@ -1683,6 +1750,41 @@ LAB_JSON_ROWS = {"lab_v6": ("tools/lab_v5.py:190", "v6_g2_p3 (per-plane)"),
 # fragments
 LAB_TWINS = {"flat_g2": "lab_base", "flat_g2_3p": "lab_3pass",
              "flat_g4_3p": "lab_3pass", "presplit_g2": "lab_3pass"}
+# the L3 and L5 rows' device ms per launch before the split walk, one block
+# walking each tile (this script's final run at commit 7caea27, NVIDIA H100
+# 80GB HBM3, 700.00 W: `git show 7caea27:PERF.md`; the other rows' were not
+# recorded)
+LAB_TILE_WALK_MS = {"lab_base": 1.6576, "lab_3pass": 1.6370,
+                    "flat_g2": 1.7534, "flat_g2_3p": 1.8739,
+                    "flat_g4_3p": 2.1568}
+
+
+def lab_split_line(res, smi):
+    """`[lab]`'s line for a row of the split walk (L3, L5): the device time
+    per call (the sum of its three kernels), beside the same kernel with
+    one item per tile, the tile walk's time before the split walk and the
+    bound; its items; the rays that differ from the plain version and from
+    one item per tile, live and dead."""
+    from skele_raytracer_tpu_torch.ops.cuda import lab
+
+    ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    before = LAB_TILE_WALK_MS.get(res["name"])
+    return (f"[lab] split {res['name']}: {ms(res['dev_ms'])} per call "
+            f"(init + walk + unpack, profiler sum; slope {res['ms']:.4f} ms); "
+            f"one item per tile {ms(res['tile_dev_ms'])} (slope "
+            f"{res['tile_ms']:.4f} ms); one block per tile at 7caea27: "
+            f"{ms(before) if before else 'not recorded'}; bound "
+            f"{res['bound'][0]:.4f} ms by {res['bound'][1]}; {res['items']} "
+            f"items of at most {lab.ITEM_GROUPS} groups, the longest "
+            f"{res['longest']} ({int(res['walked'].max())} in the longest "
+            f"tile); {res['blocks_per_sm']} blocks/SM x "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+            f"SMs; rays differing from the plain version live "
+            f"{res['vs_plain'][0]} dead {res['vs_plain'][1]}"
+            + ("" if res["passes"] == 6 else " (bf16x3: the tensor cores' "
+               "sums round otherwise; class `p3_plain_ok`)")
+            + f", from one item per tile live {res['vs_tile'][0]} dead "
+            f"{res['vs_tile'][1]}; on {smi}")
 
 
 def phase_lab(smi):
@@ -1703,9 +1805,16 @@ def phase_lab(smi):
     40 launches, and profiler), its plain version's time and its bound
     (`lab_work`); the mm rows with torch.matmul's time; L5's and L6's rows
     against their L3 twins (LAB_TWINS: equal on every live ray; rays that
-    differ off the live set are counted); the cs-sweep (K3 over five
-    clusterings, equal). Returns the JSON entries of L1-L6 without their
-    launches."""
+    differ off the live set are counted); the split walk's rows (L3, L5)
+    also with `lab_split_line` (device time per call as the sum of its
+    three kernels, beside one item per tile and LAB_TILE_WALK_MS; its
+    items), each bitwise equal to the same kernel with one item per tile
+    on every ray, live and dead, and its longest item shorter than the
+    longest tile's walk; each L5 row against L3 at the same G and one
+    block per SM, L5's occupancy (bitwise, timed); the split walk's
+    `kl.items_sweep` (1-4 groups per item and one item per tile); the
+    cs-sweep (K3 over five clusterings, equal). Returns the JSON entries of L1-L6 without their launches."""
+    from skele_raytracer_tpu_torch.ops.cuda import lab
     from skele_raytracer_tpu_torch.tools import kernel_lab as kl
     from skele_raytracer_tpu_torch.tools import lab_probe, lab_v5
     from skele_raytracer_tpu_torch.utils.roofline import lab_work
@@ -1740,6 +1849,15 @@ def phase_lab(smi):
                 extra(res, b)
             check(res["plain_ok"], f"[lab] {name}: {kind} disagrees with its "
                   f"plain version")
+            if "items" in res:
+                print(lab_split_line(res, smi))
+                check(res["vs_tile"] == (0, 0), f"[lab] {name}: the split "
+                      f"walk differs from one item per tile on "
+                      f"{res['vs_tile']} (live, dead) rays")
+                check(res["longest"] < int(res["walked"].max()),
+                      f"[lab] {name}: the longest item "
+                      f"({res['longest']} groups) is no shorter than the "
+                      f"longest tile's walk")
             if res["passes"] == 6 and res["stage"] == "loop":
                 check(res["vs_k3"] == "OK", f"[lab] {name}: {res['vs_k3']} "
                       f"against K3")
@@ -1761,6 +1879,26 @@ def phase_lab(smi):
                  "rays' shortlist)" if n_all > n_live == 0 else ""))
         check(n_live == 0, f"[lab] {name} differs from {twin} on {n_live} "
               f"live rays")
+    # L5 against L3 at L5's occupancy (one block per SM), at L5's G
+    ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    for name, twin in LAB_TWINS.items():
+        if rows[name]["kind"] != "lab_flat":
+            continue
+        kind, kw = kl.ROWS[twin]
+        kw = dict(kw, group_c=rows[name]["kw"]["group_c"])
+        fn = lambda: lab.lab_nearest_kernel(kind, b, sm_blocks=1, **kw)
+        d = kl.differ(fn(), rows[name]["out"], b.live)
+        one = kl.profiler_ms(fn, kl.kernel_tag(kind, kw))
+        fits = lab.blocks_per_sm(kind, kw["group_c"], kw.get("passes", 6),
+                                 b.cluster_size)
+        print(f"[lab] occupancy: {name} (L5, {rows[name]['blocks_per_sm']} "
+              f"block/SM) {ms(rows[name]['dev_ms'])} against L3 at G "
+              f"{kw['group_c']} and 1 block/SM {ms(one)} (L3 holds {fits}); "
+              f"rays differing live {d[0]} dead {d[1]}; on {smi}")
+        check(d == (0, 0), f"[lab] {name} differs from L3 at one block per "
+              f"SM on {d} (live, dead) rays")
+    kl.items_sweep(b, emit=lambda text: print(f"[lab] items-sweep {text} on "
+                                              f"{smi}"))
     same = kl.cs_sweep("cuda",
                        emit=lambda text: print(f"[lab] {text} on {smi}"))
     check(same, "[lab] K3 disagrees across clusterings")
@@ -3471,7 +3609,7 @@ def main() -> int:
     phase_build()
     parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
     phase_sass(parent)
-    phase_sass_lab()
+    phase_sass_lab(parent)
     worst_small = phase_kernel_vs_plain()
     worst_mesh = phase_mesh_kernels_vs_plain()
     t0 = time.perf_counter()

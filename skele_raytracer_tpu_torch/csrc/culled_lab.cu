@@ -30,9 +30,20 @@
 // unconditional group with or without the epilogue: wrong on purpose,
 // timing only). None changes an output bit except L4's stages.
 //
-// Design. One block of 256 threads per tile. The group's cluster blocks
-// (rows x 4 planes x cs floats, plus the aux rows) go into one of two
-// shared-memory stages through the bulk asynchronous copy unit
+// Design. L1, L2, L4 and L6: one block of 256 threads per tile, which walks
+// the tile's groups in order. L3 and L5 (the split walk): a tile's walk is
+// cut into work items of at most item_groups groups (lab::item_at; every
+// tile's full items first, then the shorter last ones), which a persistent
+// grid of blocks (blocks per SM times the SMs) takes from an atomic
+// counter, so that no long tile runs alone at the end of a launch; each
+// item is walked as a tile is (the settle test from its own bests), and
+// each ray's best is merged into a 64-bit key (lab::best_key: t's bits,
+// then the index) with atomicMin: exact, and the same in any order of the
+// items. Three kernels per call: lab_split_init (the keys, the items'
+// prefix sums, the counter and the root box), the walk, lab_split_unpack.
+// A group's cluster blocks (rows x 4 planes x cs floats, plus the aux
+// rows) go into one of two shared-memory stages through the bulk
+// asynchronous copy unit
 // (cp.async.bulk: one copy per row, all completing on the stage's mbarrier
 // with the group's byte count; cluster_walk.cuh's cw::Ring waits and
 // drains), so group p + 1 loads while p is tested. Each staged row is
@@ -77,6 +88,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "cluster_walk.cuh"
 #include "lab_math.cuh"
@@ -320,6 +333,11 @@ __device__ __forceinline__ void mma_group(const float* st,
 
 // ---- the tile ------------------------------------------------------------
 
+// L1, L2, L4, L6: block `blockIdx.x` walks tile blockIdx.x whole and
+// writes its rays' answers. The same steps as the split walk's
+// thread_rows, load_rays and walk_groups below, written out as before it,
+// so that these four kernels compile to the instructions they had (calls
+// of the helpers move the register allocation).
 template <int PASSES, int G, int L>
 __device__ __forceinline__ void lab_tile(
     const LabArgs& a, const float* __restrict__ feats,
@@ -458,6 +476,265 @@ __device__ __forceinline__ void lab_tile(
     }
 }
 
+
+// ---- the split walk (L3, L5) ----------------------------------------------
+
+// The rows of its tile that a thread holds: passes = 3 four, rays
+// (lane / 4) + 8 k' of its warp's two 16-ray A tiles; passes = 6 its own.
+template <int PASSES, int NR>
+__device__ __forceinline__ void thread_rows(int (&ray)[NR]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < NR; ++k)
+    ray[k] = PASSES == 3
+                 ? 32 * warp + 16 * (k >> 1) + (lane >> 2) + 8 * (k & 1)
+                 : (int)threadIdx.x;
+}
+
+// The thread's rays of the tile at row `base`: each one's exit from the
+// root box [root_lo, root_hi] (`texit`); passes = 6 its ray's features
+// (`f`); passes = 3 the A fragments of the warp's two 16-ray tiles, hi and
+// lo: register r holds row (lane / 4) + 8 (r & 1), features 2q + 8 (r >> 1)
+// and the next (0 past the 10th).
+template <int PASSES, int NR>
+__device__ __forceinline__ void load_rays(
+    const float* __restrict__ feats, size_t base, const int (&ray)[NR],
+    const float* root_lo, const float* root_hi, float (&texit)[NR],
+    float (&f)[kFeat], uint32_t (&ahi)[2][4], uint32_t (&alo)[2][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    float fr[kFeat];
+#pragma unroll
+    for (int c = 0; c < kFeat; ++c) fr[c] = feats[(base + ray[k]) * kFeat + c];
+    texit[k] = lab::root_exit(fr, root_lo, root_hi);
+    if (PASSES == 6)
+#pragma unroll
+      for (int c = 0; c < kFeat; ++c) f[c] = fr[c];
+  }
+  if (PASSES == 3) {
+    const int q = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const size_t row = base + 32 * warp + 16 * mt + (lane >> 2) +
+                           8 * (r & 1);
+        const int c0 = 2 * q + 8 * (r >> 1);
+        const float x0 = c0 < kFeat ? feats[row * kFeat + c0] : 0.0f;
+        const float x1 = c0 + 1 < kFeat ? feats[row * kFeat + c0 + 1] : 0.0f;
+        float h0, l0, h1, l1;
+        lab::split(x0, h0, l0);
+        lab::split(x1, h1, l1);
+        ahi[mt][r] = lab::pack2(h0, h1);
+        alo[mt][r] = lab::pack2(l0, l1);
+      }
+  }
+}
+
+// Groups p0 .. p1 - 1 (p0 < p1) of a tile's walk (order_row: its
+// shortlist; ent_row: its sorted entries) folded into the thread's bests
+// (tb, ib), through the ring: the first one or two loads start here, each
+// later one once its stage is free. After a group (unless no_exit, or
+// gate after the range's last group) the settle test: stop
+// once the next group's entry lies past the block's largest min(best t,
+// root exit). Loads may be in flight at the end: the caller drains.
+template <int PASSES, int G, int L, int NR>
+__device__ __forceinline__ void walk_groups(
+    cw::Ring& ring, const LabArgs& a, const float* __restrict__ K,
+    const float* __restrict__ aux, const int32_t* order_row,
+    const float* ent_row, int p0, int p1, const float (&texit)[NR],
+    const float (&f)[kFeat], const uint32_t (&ahi)[2][4],
+    const uint32_t (&alo)[2][4], float (&tb)[NR], int32_t (&ib)[NR],
+    float (*s_red)[kWarps]) {
+  constexpr int S = stages_of(L, G);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  fetch_group<L>(ring, K, aux, order_row, p0, G, a);
+  if (S == 2 && p1 - p0 > 1)
+    fetch_group<L>(ring, K, aux, order_row, p0 + 1, G, a);
+  for (int p = p0; p < p1; ++p) {
+    const float* st = ring.wait();
+    if constexpr (PASSES == 3)
+      mma_group<G, L>(st, ahi, alo, a, tb, ib);
+    else
+      scalar_group<G, L>(st, f, a, tb[0], ib[0]);
+    const bool last = p + 1 >= p1;
+    if (!a.no_exit && !(a.gate && last)) {
+      // the settle bound: the tile's largest min(best t, root exit)
+      float v = lab::min_nan(tb[0], texit[0]);
+#pragma unroll
+      for (int k = 1; k < NR; ++k)
+        v = lab::max_nan(v, lab::min_nan(tb[k], texit[k]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v = lab::max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (lane == 0) s_red[p & 1][warp] = v;
+      __syncthreads();  // also: every thread is done with this stage
+      float settle = s_red[p & 1][0];
+      for (int w = 1; w < kWarps; ++w)
+        settle = lab::max_nan(settle, s_red[p & 1][w]);
+      const int nxt = min((p + 1) * G, a.C);
+      if (ent_row[nxt] > settle) break;
+    } else if (!last) {
+      __syncthreads();  // every thread is done with this stage
+    }
+    if (last) break;
+    if (p + S < p1) fetch_group<L>(ring, K, aux, order_row, p + S, G, a);
+  }
+}
+
+// The split walk's scratch, written by lab_split_init inside each call
+// (`split_work` lays it out in the wrapper's buffer): each ray's best key
+// (lab::best_key), the work items' prefix sums (lab::item_at), the next
+// item to take and the root box.
+struct SplitWork {
+  unsigned long long* keys;  // [n_tiles 256]
+  int32_t* full_off;         // [n_tiles + 1]
+  int32_t* rest_off;         // [n_tiles + 1]
+  int32_t* next;             // [1]
+  float* root;               // [6]: lo, hi
+  int L;                     // groups per item at most
+};
+
+// A persistent block: takes work items (a tile and a range of its groups)
+// from the counter until none is left, walks each as lab_tile walks a
+// tile (the settle test from the item's own bests: a best can only lower
+// the bound, so an item stops only where the whole walk would), and
+// merges each ray's best into its key with a 64-bit atomicMin, exact and
+// independent of the order of the items.
+template <int PASSES, int G, int L>
+__device__ __forceinline__ void lab_items(
+    const LabArgs& a, const float* __restrict__ feats,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ counts,
+    const float* __restrict__ ent, const float* __restrict__ K,
+    const float* __restrict__ aux, const SplitWork& w) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t s_bar[2];
+  __shared__ float s_red[2][kWarps];
+  __shared__ int s_item[2][3];  // tile (-1: none left), p0, p1
+  constexpr int NR = PASSES == 3 ? 4 : 1;
+  const int tid = threadIdx.x;
+  const int T = a.n_tiles;
+  int ray[NR];
+  thread_rows<PASSES>(ray);
+  const bool writer = PASSES == 3 ? ((tid % 32) & 3) == 0 : true;
+
+  constexpr int S = stages_of(L, G);
+  float* stage_buf = reinterpret_cast<float*>(smem4);
+  cw::Ring ring{stage_buf, s_bar, S == 2 ? G * cluster_floats(a.cs, L) : 0};
+  ring.init();
+  for (int k = 0;; ++k) {
+    int* si = s_item[k & 1];
+    if (tid == 0) {
+      const int it = atomicAdd(w.next, 1);
+      si[0] = -1;
+      if (it < w.full_off[T] + w.rest_off[T]) {
+        const lab::Item item =
+            lab::item_at(it, w.full_off, w.rest_off, counts, T, G, w.L);
+        si[0] = item.tile;
+        si[1] = item.p0;
+        si[2] = item.p1;
+      }
+    }
+    // the item; the ring's barriers (first time); every thread is done
+    // with the previous item's stages and with s_item[(k + 1) & 1]
+    __syncthreads();
+    const int tile = si[0];
+    if (tile < 0) break;
+    const size_t base = (size_t)tile * lab::TILE;
+    float tb[NR];
+    int32_t ib[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      tb[r] = mm::BIG;
+      ib[r] = mm::BIG_I;
+    }
+    float texit[NR];
+    float f[kFeat];
+    uint32_t ahi[2][4], alo[2][4];
+    load_rays<PASSES>(feats, base, ray, w.root, w.root + 3, texit, f, ahi,
+                      alo);
+    walk_groups<PASSES, G, L>(ring, a, K, aux, order + (size_t)tile * a.C,
+                              ent + (size_t)tile * (a.C + 1), si[1], si[2],
+                              texit, f, ahi, alo, tb, ib, s_red);
+    ring.drain();
+    if (writer)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        if (tb[r] < mm::BIG)  // a miss leaves the key as it is
+          atomicMin(w.keys + base + ray[r],
+                    (unsigned long long)lab::best_key(tb[r], ib[r]));
+  }
+}
+
+// The split walk's first kernel: every key the miss's; block 0 also the
+// root box (as lab_tile scans it), the counter and the items' prefix sums
+// over the tiles (each thread a run of tiles, a scan over the threads).
+__global__ void __launch_bounds__(kThreads)
+    lab_split_init(int T, int C, int G, const int32_t* __restrict__ counts,
+                   const float* __restrict__ lo,
+                   const float* __restrict__ hi, SplitWork w) {
+  __shared__ int s_full[kThreads], s_rest[kThreads];
+  const int tid = threadIdx.x;
+  const size_t R = (size_t)T * lab::TILE;
+  const unsigned long long miss = lab::best_key(mm::BIG, mm::BIG_I);
+  for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < R;
+       i += (size_t)gridDim.x * kThreads)
+    w.keys[i] = miss;
+  if (blockIdx.x != 0) return;
+  if (tid < 3) {
+    float m = lo[tid];
+    for (int c = 1; c < C; ++c) m = lab::min_nan(m, lo[c * 3 + tid]);
+    w.root[tid] = m;
+  } else if (tid < 6) {
+    float m = hi[tid - 3];
+    for (int c = 1; c < C; ++c) m = lab::max_nan(m, hi[c * 3 + tid - 3]);
+    w.root[tid] = m;
+  } else if (tid == 6) {
+    *w.next = 0;
+  }
+  const int run = (T + kThreads - 1) / kThreads;
+  const int t0 = min(T, tid * run), t1 = min(T, t0 + run);
+  int nf = 0, nr = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int g = lab::tile_groups(counts[t], G);
+    nf += lab::full_items(g, w.L);
+    nr += lab::rest_items(g, w.L);
+  }
+  s_full[tid] = nf;
+  s_rest[tid] = nr;
+  __syncthreads();
+  for (int off = 1; off < kThreads; off <<= 1) {  // inclusive scan
+    const int vf = tid >= off ? s_full[tid - off] : 0;
+    const int vr = tid >= off ? s_rest[tid - off] : 0;
+    __syncthreads();
+    s_full[tid] += vf;
+    s_rest[tid] += vr;
+    __syncthreads();
+  }
+  int of = s_full[tid] - nf, orr = s_rest[tid] - nr;
+  for (int t = t0; t < t1; ++t) {
+    w.full_off[t] = of;
+    w.rest_off[t] = orr;
+    const int g = lab::tile_groups(counts[t], G);
+    of += lab::full_items(g, w.L);
+    orr += lab::rest_items(g, w.L);
+  }
+  if (tid == kThreads - 1) {
+    w.full_off[T] = s_full[tid];
+    w.rest_off[T] = s_rest[tid];
+  }
+}
+
+// The split walk's last kernel: each ray's key as (t, index).
+__global__ void __launch_bounds__(kThreads)
+    lab_split_unpack(int R, const unsigned long long* __restrict__ keys,
+                     float* __restrict__ out_t, int32_t* __restrict__ out_i) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < R;
+       i += gridDim.x * kThreads)
+    lab::unpack_key(keys[i], out_t[i], out_i[i]);
+}
+
 #define LAB_ARGS                                                          \
   LabArgs a, const float* __restrict__ feats,                             \
       const int32_t* __restrict__ order, const int32_t* __restrict__ counts, \
@@ -466,6 +743,12 @@ __device__ __forceinline__ void lab_tile(
       const float* __restrict__ aux, float* __restrict__ out_t,           \
       int32_t* __restrict__ out_i
 #define LAB_PASS a, feats, order, counts, ent, lo, hi, K, aux, out_t, out_i
+#define ITEM_ARGS                                                         \
+  LabArgs a, const float* __restrict__ feats,                             \
+      const int32_t* __restrict__ order, const int32_t* __restrict__ counts, \
+      const float* __restrict__ ent, const float* __restrict__ K,         \
+      const float* __restrict__ aux, SplitWork w
+#define ITEM_PASS a, feats, order, counts, ent, K, aux, w
 
 // L1: folded blocks, the split path always, per_group.
 template <int PASSES, int G>
@@ -479,10 +762,10 @@ __global__ void __launch_bounds__(kThreads) lab_v5_kernel(LAB_ARGS) {
   lab_tile<PASSES, G, kFolded>(LAB_PASS);
 }
 
-// L3: unfolded blocks; thin, gate, no_exit.
+// L3: unfolded blocks; thin, gate, no_exit; the split walk.
 template <int PASSES, int G>
-__global__ void __launch_bounds__(kThreads) lab_base_kernel(LAB_ARGS) {
-  lab_tile<PASSES, G, kKc>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads) lab_base_kernel(ITEM_ARGS) {
+  lab_items<PASSES, G, kKc>(ITEM_PASS);
 }
 
 // L4: unfolded blocks; the probe's stage.
@@ -491,10 +774,11 @@ __global__ void __launch_bounds__(kThreads) lab_probe_kernel(LAB_ARGS) {
   lab_tile<PASSES, G, kKc>(LAB_PASS);
 }
 
-// L5: unfolded blocks padded to 16 rows on the host (K = kcf).
+// L5: unfolded blocks padded to 16 rows on the host (K = kcf); the split
+// walk.
 template <int PASSES, int G>
-__global__ void __launch_bounds__(kThreads) lab_flat_kernel(LAB_ARGS) {
-  lab_tile<PASSES, G, kFlat>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads) lab_flat_kernel(ITEM_ARGS) {
+  lab_items<PASSES, G, kFlat>(ITEM_PASS);
 }
 
 // L6, bf16x3 only: unfolded blocks split on the host (K = the words).
@@ -503,30 +787,47 @@ __global__ void __launch_bounds__(kThreads) lab_presplit_kernel(LAB_ARGS) {
   lab_tile<3, G, kPresplit>(LAB_PASS);
 }
 
-using KernelFn = void (*)(LAB_ARGS);
+using TileFn = void (*)(LAB_ARGS);
+using ItemFn = void (*)(ITEM_ARGS);
+
+// A kind's kernel at (passes, G): the tile walk (L1, L2, L4, L6) or the
+// split walk (L3, L5); neither where the kind is not built so.
+struct Kernel {
+  TileFn tile = nullptr;
+  ItemFn item = nullptr;
+  const void* fn() const {
+    return tile != nullptr ? (const void*)tile : (const void*)item;
+  }
+};
 
 template <int PASSES, int G>
-KernelFn kernel_of(int kind) {
+Kernel kernel_of(int kind) {
+  Kernel k;
   switch (kind) {
     case 0:
-      return lab_v6_kernel<PASSES, G>;
+      k.tile = lab_v6_kernel<PASSES, G>;
+      break;
     case 1:
-      return lab_v5_kernel<PASSES, G>;
+      k.tile = lab_v5_kernel<PASSES, G>;
+      break;
     case 2:
-      return lab_base_kernel<PASSES, G>;
+      k.item = lab_base_kernel<PASSES, G>;
+      break;
     case 3:
-      return lab_probe_kernel<PASSES, G>;
+      k.tile = lab_probe_kernel<PASSES, G>;
+      break;
     case 4:
-      return lab_flat_kernel<PASSES, G>;
+      k.item = lab_flat_kernel<PASSES, G>;
+      break;
     case 5:
-      if constexpr (PASSES == 3) return lab_presplit_kernel<G>;
-      return nullptr;
+      if constexpr (PASSES == 3) k.tile = lab_presplit_kernel<G>;
+      break;
   }
-  return nullptr;
+  return k;
 }
 
 template <int PASSES>
-KernelFn kernel_of(int kind, int G) {
+Kernel kernel_of(int kind, int G) {
   switch (G) {
     case 1:
       return kernel_of<PASSES, 1>(kind);
@@ -535,7 +836,13 @@ KernelFn kernel_of(int kind, int G) {
     case 4:
       return kernel_of<PASSES, 4>(kind);
   }
-  return nullptr;
+  return Kernel{};
+}
+
+Kernel kernel_of(int kind, int passes, int G) {
+  return passes == 6 ? kernel_of<6>(kind, G)
+         : passes == 3 ? kernel_of<3>(kind, G)
+                       : Kernel{};
 }
 
 // Each kind's block layout (kinds as culled_lab's `kind`).
@@ -553,31 +860,56 @@ size_t smem_bytes(int kind, int group_c, int cs) {
 
 // Sets the dynamic shared memory a launch of `kern` needs above the
 // default 48 KB.
-cudaError_t allow_smem(KernelFn kern, size_t smem) {
+cudaError_t allow_smem(const void* kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute((const void*)kern,
+  return cudaFuncSetAttribute(kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
+// Blocks of `kern` one SM holds at once with `smem` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+cudaError_t occupancy(const void* kern, size_t smem, int* blocks) {
+  cudaError_t e = allow_smem(kern, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
+                                                      smem);
+  return e;
+}
+
+// The split walk's scratch in `work` (culled_lab_workspace bytes): the
+// keys, then the int32 tables, then the root box.
+SplitWork split_work(void* work, int n_tiles, int item_groups) {
+  SplitWork w;
+  w.keys = static_cast<unsigned long long*>(work);
+  w.full_off = reinterpret_cast<int32_t*>(w.keys + (size_t)n_tiles * lab::TILE);
+  w.rest_off = w.full_off + n_tiles + 1;
+  w.next = w.rest_off + n_tiles + 1;
+  w.root = reinterpret_cast<float*>(w.next + 1);
+  w.L = item_groups;
+  return w;
+}
+
 }  // namespace
+
+// Bytes of the scratch buffer the split walk (L3, L5) takes for n_tiles
+// tiles (SplitWork); 8-byte aligned.
+extern "C" long long culled_lab_workspace(int n_tiles) {
+  return 8LL * n_tiles * lab::TILE + 4LL * (2 * (n_tiles + 1) + 1 + 6);
+}
 
 // Blocks of lab kernel `kind` (as `culled_lab`) that one SM holds at once
 // at this launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
-// registers, shared memory), or minus a CUDA error.
+// registers, shared memory), or minus a CUDA error. For L3 and L5 that of
+// the split walk's kernel, whose persistent grid is this times the SMs.
 extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
                                     int cs) {
-  KernelFn kern = passes == 6   ? kernel_of<6>(kind, group_c)
-                  : passes == 3 ? kernel_of<3>(kind, group_c)
-                                : nullptr;
-  if (kern == nullptr || cs <= 0 || cs % 8 != 0)
+  const Kernel k = kernel_of(kind, passes, group_c);
+  if (k.fn() == nullptr || cs <= 0 || cs % 8 != 0)
     return -(int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(kind, group_c, cs);
-  cudaError_t e = allow_smem(kern, smem);
   int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                      kThreads, smem);
+  const cudaError_t e = occupancy(k.fn(), smem_bytes(kind, group_c, cs),
+                                  &blocks);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
@@ -588,31 +920,62 @@ extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
 // [n_tiles, C + 1], lo/hi [C, 3], K [C, rows, 4, cs] (kinds 0-1: k10, rows
 // 10; 2-3: kc, rows 9; 4: kcf, rows 16; 5: kc's words, rows 9), aux
 // [C, aux rows, cs] (kinds 0-1: org; else aux). Writes t [n_tiles 256]
-// (BIG = miss) and the original index (BIG_I = miss). cs must be a
+// (BIG = miss) and the original index (BIG_I = miss). Kinds 0, 1, 3, 5:
+// one kernel, a block per tile. Kinds 2 and 4 (the split walk): three
+// kernels, lab_split_init, the walk on a persistent grid (blocks per SM
+// times the SMs, at most the items there can be; with sm_blocks > 0 at
+// most sm_blocks per SM, for measurement) taking items of at most
+// item_groups (>= 1) groups, and lab_split_unpack, with the scratch
+// `work` (culled_lab_workspace bytes) and t_clip >= 0. cs must be a
 // multiple of 8 and every table 16-byte aligned; anything else returns
 // cudaErrorInvalidValue. Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError().
 extern "C" int culled_lab(int kind, int passes, int group_c, int n_tiles,
                           int C, int cs, int thin, int gate, int no_exit,
-                          int split, int per_group, int stage, float t_clip,
-                          const float* feats, const int32_t* order,
-                          const int32_t* counts, const float* ent,
-                          const float* lo, const float* hi, const float* K,
-                          const float* aux, float* out_t, int32_t* out_i,
-                          void* stream) {
+                          int split, int per_group, int stage,
+                          int item_groups, int sm_blocks, float t_clip,
+                          const float* feats,
+                          const int32_t* order, const int32_t* counts,
+                          const float* ent, const float* lo, const float* hi,
+                          const float* K, const float* aux, float* out_t,
+                          int32_t* out_i, void* work, void* stream) {
   if (n_tiles <= 0) return (int)cudaGetLastError();
   if (cs <= 0 || cs % 8 != 0 || C <= 0 || kind < 0 || kind > 5)
     return (int)cudaErrorInvalidValue;
-  KernelFn kern = passes == 6   ? kernel_of<6>(kind, group_c)
-                  : passes == 3 ? kernel_of<3>(kind, group_c)
-                                : nullptr;
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  const Kernel k = kernel_of(kind, passes, group_c);
+  if (k.fn() == nullptr) return (int)cudaErrorInvalidValue;
   const LabArgs a{n_tiles, C,     cs,        thin,  gate,
                   no_exit, split, per_group, stage, t_clip};
   const size_t smem = smem_bytes(kind, group_c, cs);
-  const cudaError_t e = allow_smem(kern, smem);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k.tile != nullptr) {
+    const cudaError_t e = allow_smem(k.fn(), smem);
+    if (e != cudaSuccess) return (int)e;
+    k.tile<<<n_tiles, kThreads, smem, s>>>(a, feats, order, counts, ent, lo,
+                                           hi, K, aux, out_t, out_i);
+    return (int)cudaGetLastError();
+  }
+  if (item_groups < 1 || work == nullptr || !(t_clip >= 0.0f))
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0, dev = 0, sms = 0;
+  cudaError_t e = occupancy(k.fn(), smem, &blocks);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  kern<<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      a, feats, order, counts, ent, lo, hi, K, aux, out_t, out_i);
+  if (sm_blocks > 0) blocks = std::min(blocks, sm_blocks);
+  const SplitWork w = split_work(work, n_tiles, item_groups);
+  const int R = n_tiles * lab::TILE;
+  const long long most =
+      (long long)n_tiles *
+      ((lab::tile_groups(C, group_c) + item_groups - 1) / item_groups);
+  const int grid = (int)std::max(
+      1LL, std::min((long long)std::max(blocks, 1) * sms, most));
+  lab_split_init<<<std::min((R + 4 * kThreads - 1) / (4 * kThreads), 1024),
+                   kThreads, 0, s>>>(n_tiles, C, group_c, counts, lo, hi, w);
+  k.item<<<grid, kThreads, smem, s>>>(a, feats, order, counts, ent, K, aux,
+                                      w);
+  lab_split_unpack<<<std::min((R + kThreads - 1) / kThreads, 1024), kThreads,
+                     0, s>>>(R, w.keys, out_t, out_i);
   return (int)cudaGetLastError();
 }

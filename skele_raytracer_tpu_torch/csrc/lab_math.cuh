@@ -40,6 +40,10 @@
 // `thin_epilogue`: u >= 0 <=> sign(u_num) == sign(det), by an XOR of sign
 // bits; zero-safe).
 //
+// L3 and L5 spread a tile's walk over many blocks: the work items (a tile
+// and a range of its groups; `item_at`) and the exact merge of their
+// answers (`best_key`, `unpack_key`, `min_key`) are here too.
+//
 // Everything here is what culled_lab.cu calls; the host build
 // (lab_math_host.cpp) runs the same functions pair by pair for the CPU
 // tests, which hold them bitwise against the plain version's pairs.
@@ -226,7 +230,11 @@ MM_FN float thin_t(const mm::Planes& p, float t_clip) {
   return valid ? t : mm::BIG;
 }
 
-// A pair's t under the kernel's epilogue, with the unfolded mask.
+// A pair's t under the kernel's epilogue, with the unfolded mask. It is
+// BIG or a t > t_clip (both epilogues end in `t > t_clip`, false for a
+// NaN), so with t_clip >= 0 no NaN and no negative t reaches
+// mm::nearest_update, and a best is (BIG, BIG_I) or a hit (t, index) with
+// t_clip < t < BIG and index >= 0: what `best_key` needs.
 MM_FN float pair_t(const mm::Planes& p, bool thin, bool masked_in,
                    float t_clip) {
   if (!masked_in) return mm::BIG;
@@ -246,6 +254,68 @@ MM_FN float root_exit(const float* f, const float* root_lo,
     te = a == 0 ? m : min_nan(te, m);
   }
   return te;
+}
+
+// ---- the split walk (L3, L5) ----------------------------------------------
+
+// A ray's best (t, original index) as one 64-bit key, t's bits above the
+// index's. For t >= +0 that is not NaN and an index >= 0, keys order as
+// the pairs do lexicographically (non-negative floats order as their bit
+// patterns), so the smallest key is mm::merge_nearest's answer, whatever
+// order the keys come in. `pair_t` gives only such bests, and the miss
+// (BIG, BIG_I) is the largest key of all.
+static_assert(mm::BIG > 0.0f && mm::BIG_I > 0,
+              "the miss must be the largest best key");
+MM_FN uint64_t best_key(float t, int32_t idx) {
+  return ((uint64_t)(uint32_t)fbits(t) << 32) | (uint32_t)idx;
+}
+MM_FN void unpack_key(uint64_t key, float& t, int32_t& idx) {
+  t = from_bits((uint32_t)(key >> 32));
+  idx = (int32_t)(uint32_t)key;
+}
+MM_FN uint64_t min_key(uint64_t a, uint64_t b) { return b < a ? b : a; }
+
+// A tile's walk is ceil(n / G) groups of G clusters (n its shortlist's
+// length). The split walk cuts it into work items of at most L groups:
+// groups / L full items, then one shorter item if L does not divide them.
+MM_FN int tile_groups(int n, int G) { return (n + G - 1) / G; }
+MM_FN int full_items(int groups, int L) { return groups / L; }
+MM_FN int rest_items(int groups, int L) { return groups % L != 0 ? 1 : 0; }
+
+// A work item: groups p0 .. p1 - 1 of tile `tile`'s walk.
+struct Item {
+  int tile, p0, p1;
+};
+
+// Item `it` of the list that every tile's full items open, in tile order,
+// and the shorter items close (the longest first). full_off and rest_off
+// [T + 1] are the exclusive prefix sums over the tiles of full_items and
+// rest_items (their last entries the totals); it < full_off[T] +
+// rest_off[T].
+MM_FN Item item_at(int it, const int32_t* full_off, const int32_t* rest_off,
+                   const int32_t* counts, int T, int G, int L) {
+  const bool full = it < full_off[T];
+  const int32_t* off = full ? full_off : rest_off;
+  const int j = full ? it : it - full_off[T];
+  int lo = 0, hi = T;  // off[lo] <= j < off[hi]: the tile is the last lo
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (off[mid] <= j)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  Item r;
+  r.tile = lo;
+  if (full) {
+    r.p0 = (j - off[lo]) * L;
+    r.p1 = r.p0 + L;
+  } else {
+    const int g = tile_groups(counts[lo], G);
+    r.p0 = g / L * L;
+    r.p1 = g;
+  }
+  return r;
 }
 
 }  // namespace lab

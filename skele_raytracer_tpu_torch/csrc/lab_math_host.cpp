@@ -88,3 +88,51 @@ extern "C" void lab_root_exit_host(int n, const float* feats,
   for (int r = 0; r < n; ++r)
     out[r] = lab::root_exit(feats + r * 10, root_lo, root_hi);
 }
+
+// The split walk's keys (lab::best_key) of n pairs (t[i], idx[i]).
+extern "C" void lab_keys_host(int n, const float* t, const int32_t* idx,
+                              uint64_t* keys) {
+  for (int i = 0; i < n; ++i) keys[i] = lab::best_key(t[i], idx[i]);
+}
+
+// The split walk's merge of m partial answers t, idx [m, n] per ray: the
+// least key (lab::min_key) from the miss's, unpacked (lab::unpack_key).
+extern "C" void lab_key_min_host(int n, int m, const float* t,
+                                 const int32_t* idx, float* out_t,
+                                 int32_t* out_i) {
+  for (int r = 0; r < n; ++r) {
+    uint64_t key = lab::best_key(mm::BIG, mm::BIG_I);
+    for (int k = 0; k < m; ++k)
+      key = lab::min_key(key, lab::best_key(t[(size_t)k * n + r],
+                                            idx[(size_t)k * n + r]));
+    lab::unpack_key(key, out_t[r], out_i[r]);
+  }
+}
+
+// The split walk's work items of T tiles with shortlists counts [T] at G
+// clusters per group and at most L groups per item, in the kernel's order
+// (lab::item_at over the prefix sums of lab::full_items and
+// lab::rest_items): (tile, p0, p1) into items [cap, 3]. Returns how many
+// there are (-1 if more than cap).
+extern "C" int lab_items_host(int T, const int32_t* counts, int G, int L,
+                              int cap, int32_t* items) {
+  int32_t* full_off = new int32_t[T + 1];
+  int32_t* rest_off = new int32_t[T + 1];
+  full_off[0] = rest_off[0] = 0;
+  for (int t = 0; t < T; ++t) {
+    const int g = lab::tile_groups(counts[t], G);
+    full_off[t + 1] = full_off[t] + lab::full_items(g, L);
+    rest_off[t + 1] = rest_off[t] + lab::rest_items(g, L);
+  }
+  const int n = full_off[T] + rest_off[T];
+  for (int it = 0; it < n && n <= cap; ++it) {
+    const lab::Item item =
+        lab::item_at(it, full_off, rest_off, counts, T, G, L);
+    items[3 * it] = item.tile;
+    items[3 * it + 1] = item.p0;
+    items[3 * it + 2] = item.p1;
+  }
+  delete[] full_off;
+  delete[] rest_off;
+  return n <= cap ? n : -1;
+}

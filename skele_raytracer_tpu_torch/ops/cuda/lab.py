@@ -54,8 +54,20 @@ package); L5's sums all 16 rows of its blocks against the features
 padded with zeros (the zero rows add exact zeros), L6's takes hi and lo
 from `khl`; so both answer as L3's. The kernel's tensor cores accumulate
 in their own order, so it matches to a tolerance.
+With `groups=(p0, p1)` they walk only groups p0 .. p1 - 1 of every
+tile, from no hit, with the settle test from that range's own bests: the
+answer of one work item of the split walk below.
+
 `lab_nearest_kernel` launches csrc/culled_lab.cu on CUDA tensors and
-raises on anything else; `lab_nearest` picks by the batch's device.
+raises on anything else; `lab_nearest` picks by the batch's device. L1,
+L2, L4 and L6 walk a tile per block. L3 and L5 (SPLIT) take the split
+walk: each tile's groups cut into work items of at most `item_groups`
+groups (`work_items`: every tile's full items, then the shorter last
+ones), taken by a persistent grid, each ray's best merged exactly by a
+64-bit atomicMin of (t bits, index); three kernels per call
+(KERNELS_PER_CALL). For live rays the answer is the whole walk's (the
+settle test is conservative); a dead ray's equals it wherever the whole
+walk does not stop early.
 """
 
 from __future__ import annotations
@@ -97,7 +109,14 @@ DEFAULTS = dict(per_group=False, split_path=True, gate_settle=True,
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 PAD = 4  # floats after each staged row of 4 cs (csrc/culled_lab.cu kPad)
 
-# Launches of each kernel, counted where the wrapper launches it.
+# The kernels that take the split walk, its groups per work item by
+# default, and the CUDA kernels one wrapper call launches
+SPLIT = ("lab_base", "lab_flat")
+ITEM_GROUPS = 2
+KERNELS_PER_CALL = {k: 3 if k in SPLIT else 1 for k in KERNELS}
+
+# Calls of each kernel's wrapper that launched it, counted where the
+# wrapper launches it (KERNELS_PER_CALL kernels each).
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -383,10 +402,12 @@ def _plain_tables(kind: str, b: LabBatch):
 
 
 def lab_nearest_torch(kind: str, b: LabBatch, *, group_c: int = 2,
-                      passes: int = 6, walked: bool = False, **switches):
+                      passes: int = 6, walked: bool = False,
+                      groups: Optional[tuple] = None, **switches):
     """Plain version of lab kernel `kind` on batch b: (t [R], index [R]
     int32), and with `walked` also the groups each tile walked [T] (int64).
-    Runs on b's device."""
+    With `groups` = (p0, p1), only groups p0 .. p1 - 1 of each tile's walk
+    (module docstring). Runs on b's device."""
     fl = _flags(kind, switches)
     _check_shape(kind, group_c, passes)
     layout = LAYOUT[kind]
@@ -400,7 +421,8 @@ def lab_nearest_torch(kind: str, b: LabBatch, *, group_c: int = 2,
     n = b.counts.long()
     loop = fl["stage"] == "loop"
     once = (n <= G) & fl["split"] if loop else torch.ones_like(n, dtype=bool)
-    groups = torch.where(once, ((n > 0) | (not loop)).long(), -(-n // G))
+    n_groups = torch.where(once, ((n > 0) | (not loop)).long(), -(-n // G))
+    p0, p1 = groups if groups is not None else (0, None)
     settles = ~once & (loop and not fl["no_exit"])
     done = torch.zeros(T, dtype=torch.bool, device=dev)
     steps = torch.zeros(T, dtype=torch.int64, device=dev)
@@ -408,8 +430,9 @@ def lab_nearest_torch(kind: str, b: LabBatch, *, group_c: int = 2,
     chunk = max(1, PLAIN_BLOCK[dev.type] // (TILE_R * W))
     parts = [slice(g * cs, (g + 1) * cs) for g in range(G)] if fl[
         "per_group"] else [slice(0, W)]
-    for p in range(int(groups.max()) if T else 0):
-        act = ((p < groups) & ~done).nonzero().flatten()
+    top = int(n_groups.max()) if T else 0
+    for p in range(p0, top if p1 is None else min(p1, top)):
+        act = ((p < n_groups) & ~done).nonzero().flatten()
         if act.numel() == 0:
             break
         steps[act] += 1
@@ -427,13 +450,34 @@ def lab_nearest_torch(kind: str, b: LabBatch, *, group_c: int = 2,
             t[tl], idx[tl] = t_c, i_c
         sl = act[settles[act]]
         if fl["gate"]:
-            sl = sl[p + 1 < groups[sl]]
+            sl = sl[p + 1 < n_groups[sl]]
         if sl.numel():
             settle = torch.minimum(t[sl], texit[sl]).amax(1)
             nxt = min((p + 1) * G, C)
             done[sl] = done[sl] | (b.ent[sl, nxt] > settle)
     out = (t.reshape(-1), idx.reshape(-1))
     return (*out, steps) if walked else out
+
+
+def work_items(counts, group_c: int, item_groups: int) -> torch.Tensor:
+    """The split walk's work items [N, 3] int64 (tile, p0, p1: groups p0 ..
+    p1 - 1 of the tile's walk) of shortlists `counts` [T] at group_c
+    clusters per group and at most `item_groups` groups per item, in the
+    kernel's order (csrc/lab_math.cuh `item_at`): every tile's full items
+    of item_groups groups, in tile order, then each tile's shorter last
+    item."""
+    if item_groups < 1:
+        raise ValueError(f"item_groups: at least 1, got {item_groups}")
+    g = -(-counts.long() // group_c)
+    full, rest = g // item_groups, g % item_groups
+    tiles = torch.arange(g.numel(), device=g.device)
+    ft = tiles.repeat_interleave(full)
+    start = torch.cumsum(full, 0) - full
+    k = torch.arange(ft.numel(), device=g.device) - start[ft]
+    rt = tiles[rest > 0]
+    p0 = torch.cat([k * item_groups, g[rt] - rest[rt]])
+    p1 = torch.cat([(k + 1) * item_groups, g[rt]])
+    return torch.stack([torch.cat([ft, rt]), p0, p1], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -445,9 +489,11 @@ _lib = None
 
 def bind(lib):
     """Declares `culled_lab` of a loaded library."""
-    lib.culled_lab.argtypes = ([ctypes.c_int] * 12 + [ctypes.c_float]
-                               + [ctypes.c_void_p] * 11)
+    lib.culled_lab.argtypes = ([ctypes.c_int] * 14 + [ctypes.c_float]
+                               + [ctypes.c_void_p] * 12)
     lib.culled_lab.restype = ctypes.c_int
+    lib.culled_lab_workspace.argtypes = [ctypes.c_int]
+    lib.culled_lab_workspace.restype = ctypes.c_longlong
     lib.culled_lab_occupancy.argtypes = [ctypes.c_int] * 4
     lib.culled_lab_occupancy.restype = ctypes.c_int
     return lib
@@ -491,7 +537,8 @@ def launch_shape(kind: str, group_c: int, cs: int) -> int:
 
 def blocks_per_sm(kind: str, group_c: int, passes: int, cs: int) -> int:
     """Blocks of kernel `kind` one SM of the current card holds at once at
-    this launch shape (its registers and `launch_shape`'s shared memory)."""
+    this launch shape (its registers and `launch_shape`'s shared memory);
+    for SPLIT kernels also the blocks of their persistent grid per SM."""
     _check_shape(kind, group_c, passes)
     launch_shape(kind, group_c, cs)
     n = build_kernel().culled_lab_occupancy(KERNELS.index(kind), passes,
@@ -502,11 +549,19 @@ def blocks_per_sm(kind: str, group_c: int, passes: int, cs: int) -> int:
 
 
 def lab_nearest_kernel(kind: str, b: LabBatch, *, group_c: int = 2,
-                       passes: int = 6, **switches):
+                       passes: int = 6, item_groups: Optional[int] = None,
+                       sm_blocks: int = 0, **switches):
     """Lab kernel `kind` on CUDA tensors: (t, index) as
-    `lab_nearest_torch`; counted in LAUNCHES[kind]."""
+    `lab_nearest_torch`; counted in LAUNCHES[kind]. SPLIT kernels cut the
+    walk into items of at most `item_groups` groups (ITEM_GROUPS by
+    default) and run as many blocks per SM as fit, or at most `sm_blocks`
+    (> 0); other values than the defaults are for measurement and tests."""
     fl = _flags(kind, switches)
     _check_shape(kind, group_c, passes)
+    if item_groups is None:
+        item_groups = ITEM_GROUPS
+    if kind in SPLIT and item_groups < 1:
+        raise ValueError(f"item_groups: at least 1, got {item_groups}")
     dev = b.feats.device
     if dev.type != "cuda":
         raise ValueError(f"{kind} kernel: CUDA tensors, got {dev}")
@@ -538,11 +593,15 @@ def lab_nearest_kernel(kind: str, b: LabBatch, *, group_c: int = 2,
     lib = build_kernel()
     t = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
+    work = (torch.empty(lib.culled_lab_workspace(T), dtype=torch.uint8,
+                        device=dev) if kind in SPLIT else None)
     args = (KERNELS.index(kind), passes, group_c, T, C, cs, int(fl["thin"]),
             int(fl["gate"]), int(fl["no_exit"]), int(fl["split"]),
-            int(fl["per_group"]), STAGES.index(fl["stage"]), CLEAN_T_EPS,
+            int(fl["per_group"]), STAGES.index(fl["stage"]), item_groups,
+            sm_blocks, CLEAN_T_EPS,
             *(x.data_ptr() for x in (b.feats, b.order, b.counts, b.ent, b.lo,
-                                     b.hi, K, A, t, idx)))
+                                     b.hi, K, A, t, idx)),
+            None if work is None else work.data_ptr())
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.culled_lab(*args, stream)

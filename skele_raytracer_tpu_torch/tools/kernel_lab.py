@@ -13,12 +13,13 @@ K3 tests (`accel.KERNEL_BOX_MARGIN`; the TPU lab took the tight ones), so
 that the lab's culls are conservative as K3's and its full-FP32 rows can
 be held bitwise against K3.
 
-Each row prints its device time per launch, as the slope of 8 against 40
-back-to-back launches under CUDA events (the least of 3 each; the slope
+Each row prints its device time per call, as the slope of 8 against 40
+back-to-back calls under CUDA events (the least of 3 each; the slope
 cancels the launch overhead, as the TPU lab's slope over in-program
 repetitions cancelled its dispatch floor) beside profiler device time per
-launch, and `[OK]` or `MISMATCH t:n idx:n` against the port's production
-K3 (`culled.culled_nearest_kernel` on the same sorted batch), over the
+call (the sum of every kernel the call launches: L3's and L5's split walk
+launches three), and `[OK]` or `MISMATCH t:n idx:n` against the port's
+production K3 (`culled.culled_nearest_kernel` on the same sorted batch), over the
 batch's live rays; bf16x3 rows (p3) also say whether they stay inside
 their class against K3 (`p3_fp32_ok`: hit flags agree on 99.9% of the
 rays, t within the bf16x3 product's error bound on the same triangle,
@@ -29,12 +30,15 @@ K3 itself.
     python -m skele_raytracer_tpu_torch.tools.kernel_lab [row ...]
     python -m skele_raytracer_tpu_torch.tools.kernel_lab flat_g2 presplit_g2
     python -m skele_raytracer_tpu_torch.tools.kernel_lab cs-sweep
+    python -m skele_raytracer_tpu_torch.tools.kernel_lab items-sweep
     python -m skele_raytracer_tpu_torch.tools.kernel_lab --device cpu \\
         --samples 64
 
 `cs-sweep` runs K3 at cluster sizes 256, 128 and 64 with tiles of 256 and
 128 rays (the shortlists' mean length), unsorts its answers and holds
-them against the first clustering's. `--device cpu` runs the plain
+them against the first clustering's. `items-sweep` times the split walk's
+rows (L3, L5) at 1-4 groups per work item and at one item per tile
+(`items_sweep`). `--device cpu` runs the plain
 versions (ops/cuda/lab.py) and K3's, with no timing; `--samples` cuts the
 batch (a multiple of 16).
 """
@@ -411,13 +415,15 @@ def slope_ms(fn, lo: int = 8, hi: int = 40, tries: int = 3) -> float:
     return (best[hi] - best[lo]) / (hi - lo)
 
 
-def profiler_ms(fn, tag: str, reps: int = 10, tries: int = 3):
-    """Device ms per launch of the kernel whose name holds `tag`, from
-    torch.profiler over `reps` calls after a warm-up step; a trace that
-    lost launches is retaken, and after `tries` the answer is None (not
-    measured)."""
+def profiler_ms(fn, tag, reps: int = 10, tries: int = 3):
+    """Device ms per call of `fn`: the kernels whose names hold `tag` (one
+    name, or a tuple of names each launched once per call, whose times
+    are summed), from torch.profiler over `reps` calls after a warm-up
+    step; a trace that lost launches is retaken, and after `tries` the
+    answer is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    tags = (tag,) if isinstance(tag, str) else tuple(tag)
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -428,15 +434,14 @@ def profiler_ms(fn, tag: str, reps: int = 10, tries: int = 3):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and tag in e.key]
-        count = sum(e.count for e in rows)
-        if count == reps:
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        per = [[e for e in cuda if t in e.key] for t in tags]
+        if all(sum(e.count for e in rows) == reps for rows in per):
             us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
-                     for e in rows)
-            return us / 1e3 / count
+                     for rows in per for e in rows)
+            return us / 1e3 / reps
     return None
 
 
@@ -469,12 +474,40 @@ def cuda_ms(fn) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_tag(kind: str, kw: dict) -> str:
-    """The profiler name of a row's kernel instance (L6's has no passes)."""
+SPLIT_KERNELS = ("lab_split_init", "lab_split_unpack")
+
+
+def kernel_tag(kind: str, kw: dict):
+    """The profiler names of the kernels one call of a row launches: its
+    kernel instance (L6's has no passes), and for the split walk (L3, L5)
+    SPLIT_KERNELS too."""
     g = kw.get("group_c", 2)
     if kind == "lab_presplit":
         return f"{kind}_kernel<{g}>"
-    return f"{kind}_kernel<{kw.get('passes', 6)}, {g}>"
+    tag = f"{kind}_kernel<{kw.get('passes', 6)}, {g}>"
+    return (tag, *SPLIT_KERNELS) if kind in lab.SPLIT else tag
+
+
+def differ(out, ref, live) -> tuple:
+    """(live, dead) rays on which two answers differ in t or index."""
+    d = (out[0] != ref[0]) | (out[1] != ref[1])
+    m = torch.ones_like(d) if live is None else live > 0
+    return int((d & m).sum()), int((d & ~m).sum())
+
+
+def split_stats(b: lab.LabBatch, group_c: int, item_groups=None) -> dict:
+    """The split walk's work items on batch b (`lab.work_items`): how many,
+    and the longest, in groups; with item_groups None, lab.ITEM_GROUPS."""
+    items = lab.work_items(b.counts, group_c, item_groups or lab.ITEM_GROUPS)
+    return dict(items=int(items.shape[0]),
+                longest=int((items[:, 2] - items[:, 1]).max())
+                if items.numel() else 0)
+
+
+def whole_tiles(b: lab.LabBatch, group_c: int) -> int:
+    """An item length that leaves every tile one work item: the most groups
+    a tile's walk can have."""
+    return -(-b.n_clusters // group_c)
 
 
 def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
@@ -484,8 +517,12 @@ def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
     `bound` when given) and, on the card with `plain`, against its plain version
     (bitwise at passes 6, `p3_plain_ok` at 3; the probe's full1 and mm
     stages too), with the plain version's time and the groups each tile
-    walked; with `timing`, device ms per launch (`slope_ms`,
-    `profiler_ms`) and the blocks an SM holds at once (`blocks_per_sm`)."""
+    walked; with `timing`, device ms per call (`slope_ms`,
+    `profiler_ms`: the sum of the call's kernels) and the blocks an SM
+    holds at once (`blocks_per_sm`). For the split walk (lab.SPLIT) on the
+    card also its items (`split_stats`) and the same kernel with one item
+    per tile (`whole_tiles`): the rays that differ from it, live and dead
+    (`vs_tile`), and its time (`tile_ms`, `tile_dev_ms`)."""
     passes = kw.get("passes", 6)
     out = lab.lab_nearest(kind, b, **kw)
     res = dict(name=name, kind=kind, kw=kw, passes=passes, out=out,
@@ -512,23 +549,46 @@ def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
                                 if res["stage"] == "mm" else cls["abs"])
         res["plain_ms"] = cuda_ms(
             lambda: lab.lab_nearest_torch(kind, b, **kw))
+    if cuda and plain:
+        res["vs_plain"] = differ(out, (t, i), b.live)
+    split = cuda and kind in lab.SPLIT
+    if split:
+        g = kw.get("group_c", 2)
+        res.update(split_stats(b, g))
+        tile_kw = dict(kw, item_groups=whole_tiles(b, g))
+        res["vs_tile"] = differ(out, lab.lab_nearest_kernel(kind, b,
+                                                            **tile_kw),
+                                b.live)
     if cuda and timing:
         fn = lambda: lab.lab_nearest_kernel(kind, b, **kw)
         res["ms"] = slope_ms(fn)
         res["dev_ms"] = profiler_ms(fn, kernel_tag(kind, kw))
         res["blocks_per_sm"] = lab.blocks_per_sm(
             kind, kw.get("group_c", 2), passes, b.cluster_size)
+        if split:
+            fn = lambda: lab.lab_nearest_kernel(kind, b, **tile_kw)
+            res["tile_ms"] = slope_ms(fn)
+            res["tile_dev_ms"] = profiler_ms(fn, kernel_tag(kind, kw))
     return res
 
 
 def format_row(res: dict) -> str:
     """A row's line: times, the answer against K3 and its plain version."""
     parts = [f"{res['name']:26s}"]
+    ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     if "ms" in res:
-        dev = ("not measured" if res["dev_ms"] is None
-               else f"{res['dev_ms']:.4f} ms")
-        parts.append(f"{res['ms']:8.4f} ms device (slope 8 vs 40), "
-                     f"profiler {dev}, {res['blocks_per_sm']} blocks/SM")
+        parts.append(f"{res['ms']:8.4f} ms device per call (slope 8 vs 40), "
+                     f"profiler {ms(res['dev_ms'])} (all kernels), "
+                     f"{res['blocks_per_sm']} blocks/SM")
+    if "items" in res:
+        parts.append(f"split walk: {res['items']} items of at most "
+                     f"{lab.ITEM_GROUPS} groups (longest {res['longest']})")
+    if "tile_ms" in res:
+        parts.append(f"one item per tile {res['tile_ms']:.4f} ms (slope), "
+                     f"profiler {ms(res['tile_dev_ms'])}")
+    if "vs_tile" in res:
+        parts.append(f"vs one item per tile: {res['vs_tile'][0]} live, "
+                     f"{res['vs_tile'][1]} dead rays differ")
     parts.append(f"[{res['vs_k3']}]")
     if res["stage"] != "loop":
         parts.append("(wrong on purpose, timing only)")
@@ -549,7 +609,9 @@ def format_row(res: dict) -> str:
                 f"hits {c['hits']:.4%}, same triangle {c['same']:.4%}, max "
                 f"rel t diff {c['rel']:.3e}")
         parts.append(f"vs plain: {'ok' if res['plain_ok'] else 'FAIL'} "
-                     f"({kind}; plain {res['plain_ms']:.2f} ms)")
+                     f"({kind}; {res['vs_plain'][0]} live, "
+                     f"{res['vs_plain'][1]} dead rays differ; plain "
+                     f"{res['plain_ms']:.2f} ms)")
     return " ".join(parts)
 
 
@@ -621,6 +683,31 @@ def run_rows(rows: dict, names, device: str, samples: int, ref_label: str,
     return out
 
 
+# the split walk's rows that `items_sweep` times at each item length
+SWEEP_ROWS = ("lab_base", "lab_3pass", "flat_g2", "flat_g2_3p", "flat_g4_3p")
+
+
+def items_sweep(b: lab.LabBatch, emit=print, names=SWEEP_ROWS,
+                lengths=(1, 2, 3, 4)):
+    """The split walk's rows `names` on the card at each item length of
+    `lengths` (groups per item) and at one item per tile (`whole_tiles`):
+    each one's items, the longest, and its device ms per call (profiler,
+    summed over the call's kernels, and the slope); each line goes to
+    `emit`."""
+    for name in names:
+        kind, kw = ROWS[name]
+        g = kw.get("group_c", 2)
+        for L in (*lengths, whole_tiles(b, g)):
+            fn = lambda: lab.lab_nearest_kernel(kind, b, item_groups=L, **kw)
+            st = split_stats(b, g, L)
+            dev = profiler_ms(fn, kernel_tag(kind, kw))
+            emit(f"{name} at {L} groups per item: {st['items']} items, the "
+                 f"longest {st['longest']}; "
+                 + ("not measured" if dev is None else f"{dev:.4f} ms")
+                 + f" per call (profiler, all kernels), {slope_ms(fn):.4f} "
+                 f"ms (slope)")
+
+
 def cs_sweep(device: str = "cuda", samples: int = 8192, emit=print):
     """K3 at cluster sizes 256, 128 and 64 in tiles of 256 and 128 rays
     (the shortlist's mean length per tile), its answers unsorted into the
@@ -669,6 +756,13 @@ def main(argv=None):
     args = parse(argv, __doc__.split("\n\n")[0])
     if args.rows[:1] == ["cs-sweep"]:
         return 0 if cs_sweep(args.device, args.samples) else 1
+    if args.rows[:1] == ["items-sweep"]:
+        if args.device == "cpu" or not torch.cuda.is_available():
+            raise SystemExit("items-sweep times the kernels: it runs on the "
+                             "card")
+        items_sweep(build_batch(device=args.device,
+                                samples=args.samples)[0])
+        return 0
     run_rows(ROWS, args.rows, args.device, args.samples, "prod (K3)")
     return 0
 
