@@ -43,8 +43,8 @@ Phases, in order; any failure raises and exits nonzero:
    `[sass]`: the scan loops of K1 and K5 in the built code (cuobjdump),
    and the tensor-core instructions (HMMA) of the lab's L1, L2, L5 and L6
    at passes 3, which every such instance must hold, with the registers
-   and spills of every L3 and L5 instance (the split walk), L6 and L1 at
-   G 4 side by side.
+   and spills of every instance of the split walk (L1, L2, L3, L5) and L6
+   side by side.
 3. kernel vs plain on the card: K1 on each of KERNEL_CASES (at most 0.5%
    of values off by more than 1e-4, frame means within 5e-4: the
    tolerance of tests/test_pathtrace.py), its records bitwise, and K2
@@ -101,12 +101,14 @@ Phases, in order; any failure raises and exits nonzero:
    each kernel against its plain version (full FP32 bitwise; bf16x3 hit
    flags on >= 99.9% of rays, indices equal where t agrees to 1e-4) and
    against K3 (the full-FP32 walks bitwise), timed beside its bound (device
-   ms per call: the sum of its kernels, three for L3's and L5's split
-   walk, whose rows also print their work items and the same kernel at
-   one item per tile, bitwise equal on every ray, and the time one block
-   per tile took at commit 7caea27; L5 also against L3 at one block per
-   SM); L5's and L6's rows bitwise their L3 twins on the live rays; and
-   the cs-sweep. `[median]` (`phase_median`): the lab batch on Morton runs and
+   ms per call: the sum of its kernels, three for the split walk of L1,
+   L2, L3 and L5, whose rows also print their work items and the same
+   kernel at one item per tile, bitwise equal on every ray, and the time
+   one block per tile took before the split walk; L5 also against L3 at
+   one block per SM; L1 and L2 against L3 at the same G and passes);
+   L5's and L6's rows bitwise their L3 twins on the live rays; L2 without
+   its split control path bitwise L2 with it on every ray; and the
+   cs-sweep. `[median]` (`phase_median`): the lab batch on Morton runs and
    on the recursive object median, each one's shortlists and K3's time,
    K3's answers bitwise equal after the unsort. `[fd]` (`phase_fd`): the
    fixed-topology check at bench.py's 96x54 spheres1 frame, K1's records
@@ -170,13 +172,15 @@ Phases, in order; any failure raises and exits nonzero:
 
 With `--parent-csrc DIR` (an earlier commit's skele_raytracer_tpu_torch/
 csrc, e.g. `git archive` of it unpacked under build/), that tree's K1, K5,
-K7 and K3/K4 are built too, held bitwise against this tree's (K1's r, g, b
-and records at both 1080p headlines, K5's t, index, u, v at its chunk,
-K7's outputs at dragon's chunk 37, the fused and split dragon frames) and
-timed in turns with them on the same inputs; `render` and a `train_step`
-at the 1080p headlines run through each tree's K1 in turns, and the fused
-and split dragon frames through each tree's kernels; `[sass]` compares the
-kernel lab's tile-walk instances (L1, L2, L4, L6) with that tree's
+K7, K3/K4 and kernel lab are built too, held bitwise against this tree's
+(K1's r, g, b and records at both 1080p headlines, K5's t, index, u, v at
+its chunk, K7's outputs at dragon's chunk 37, the fused and split dragon
+frames, the lab's L1 and L2 rows on every ray) and timed in turns with
+them on the same inputs; `render` and a `train_step` at the 1080p
+headlines run through each tree's K1 in turns, and the fused and split
+dragon frames through each tree's kernels; `[sass]` compares the
+kernel lab's instances that must not change (LAB_SAME_AS_PARENT: L3, L4,
+L5, L6 and the split walk's first and last kernels) with that tree's
 culled_lab.cu, function by function (`lab_sass_against`).
 
 Nothing here imports JAX. Scratch files go under build/smoke/.
@@ -554,18 +558,18 @@ def turns_ms(fns, reps=10):
 
 
 class ParentKernels:
-    """K1, K5, K7, K3 and K4 as an earlier tree built them: its
-    csrc/pathtrace.cu, intersect.cu, megakernel.cu and culled.cu (a `git
-    archive` of that commit unpacked under the gitignored build/), compiled
-    with this tree's nvcc flags and bound through this tree's wrappers (the
-    C signatures of `pathtrace_forward`, `triangle_nearest`,
-    `sphere_nearest`, `fused_shade`, `culled_nearest` and `culled_occluded`
-    have not changed), so that old and new kernels are timed in turns in
-    one run. (K7 shares K5's per-pair epilogue, mesh_math.cuh `brute_t`,
-    and K3, K4 and K7 the cluster walk, cluster_walk.cuh; the parent's
-    intersect.cu carries its K6 too.)"""
+    """K1, K5, K7, K3, K4 and the kernel lab as an earlier tree built them:
+    its csrc/pathtrace.cu, intersect.cu, megakernel.cu, culled.cu and
+    culled_lab.cu (a `git archive` of that commit unpacked under the
+    gitignored build/), compiled with this tree's nvcc flags and bound
+    through this tree's wrappers (the C signatures of `pathtrace_forward`,
+    `triangle_nearest`, `sphere_nearest`, `fused_shade`, `culled_nearest`,
+    `culled_occluded` and `culled_lab` have not changed), so that old and
+    new kernels are timed in turns in one run. (K7 shares K5's per-pair
+    epilogue, mesh_math.cuh `brute_t`, and K3, K4 and K7 the cluster walk,
+    cluster_walk.cuh; the parent's intersect.cu carries its K6 too.)"""
 
-    SOURCES = ("pathtrace", "intersect", "megakernel", "culled")
+    SOURCES = ("pathtrace", "intersect", "megakernel", "culled", "culled_lab")
 
     def __init__(self, csrc):
         import ctypes
@@ -588,19 +592,20 @@ class ParentKernels:
                   f"parent {name}.cu build failed:\n{err}")
             for line in ptxas_summary(err):
                 print(f"[ptxas] parent {name}: {line}")
-        pt, culled, k5, mk = kernel_modules()
+        pt, culled, k5, mk, lab = counted_modules()
         self.libs = {pt: pt.bind(ctypes.CDLL(self.paths["pathtrace"])),
                      k5: k5.bind(ctypes.CDLL(self.paths["intersect"])),
                      mk: mk.bind(ctypes.CDLL(self.paths["megakernel"])),
-                     culled: culled.bind(ctypes.CDLL(self.paths["culled"]))}
+                     culled: culled.bind(ctypes.CDLL(self.paths["culled"])),
+                     lab: lab.bind(ctypes.CDLL(self.paths["culled_lab"]))}
         names = ", ".join(f"{n}.cu" for n in self.SOURCES)
         print(f"[build] the parent tree's {names} from {csrc}")
 
     def call(self, mod, fn):
         """fn() with `mod`'s wrappers launching the parent's library (K1's
         for ops/cuda/pathtrace.py, K5's for ops/cuda/intersect.py, K7's for
-        ops/cuda/megakernel.py, K3's and K4's for ops/cuda/culled.py);
-        `mod` None: every module's."""
+        ops/cuda/megakernel.py, K3's and K4's for ops/cuda/culled.py, the
+        lab's for ops/cuda/lab.py); `mod` None: every module's."""
         mods = list(self.libs) if mod is None else [mod]
         saved = [m._lib for m in mods]
         for m in mods:
@@ -790,8 +795,8 @@ def kernel_label(text):
     arguments (nearest_kernel<8>, fused_kernel<4, true>), or None."""
     import re
 
-    m = re.search(r"\w*?\d+((?:lab_v\d|[a-z_])[a-z_]*_kernel)"
-                  r"(I(?:L[bi]\d+E)+E)?", text)
+    m = re.search(r"\w*?\d+((?:lab_v\d|[a-z_])[a-z_]*_kernel|"
+                  r"lab_split_(?:init|unpack))(I(?:L[bi]\d+E)+E)?", text)
     if not m:
         return None
     args = [("true" if v == "1" else "false") if t == "b" else v
@@ -896,16 +901,19 @@ def phase_sass(parent=None):
 
 
 # the lab instances whose registers and spills `phase_sass_lab` prints side
-# by side: every instance of the split walk (L3, L5; L5 at G 4 holds one
-# stage of 16-row blocks), L6, L1 at G 4
-LAB_PTXAS = tuple(f"{k}_kernel<{p}, {g}>" for k in ("lab_base", "lab_flat")
+# by side: every instance of the split walk (L1, L2, L3, L5; L5 at G 4
+# holds one stage of 16-row blocks), L6
+LAB_PTXAS = tuple(f"{k}_kernel<{p}, {g}>"
+                  for k in ("lab_v6", "lab_v5", "lab_base", "lab_flat")
                   for p in (6, 3) for g in (1, 2, 4)) + (
-    "lab_presplit_kernel<2>", "lab_v6_kernel<3, 4>")
+    "lab_presplit_kernel<2>",)
 
 
-# the lab kernels that walk a tile per block (L1, L2, L4, L6)
-LAB_TILE_KERNELS = ("lab_v6_kernel", "lab_v5_kernel", "lab_probe_kernel",
-                    "lab_presplit_kernel")
+# the lab kernels whose instances must compile as the parent tree's: the
+# tile walks (L4, L6), L3's and L5's split walk, its first and last kernels
+LAB_SAME_AS_PARENT = ("lab_probe_kernel", "lab_presplit_kernel",
+                      "lab_base_kernel", "lab_flat_kernel", "lab_split_init",
+                      "lab_split_unpack")
 
 
 def sass_functions(path):
@@ -932,31 +940,24 @@ def sass_functions(path):
     return out
 
 
-def lab_sass_against(csrc):
-    """`[sass]`: the tile-walk instances (LAB_TILE_KERNELS) of this tree's
+def lab_sass_against(parent):
+    """`[sass]`: the instances of LAB_SAME_AS_PARENT in this tree's
     culled_lab library against those of an earlier tree's culled_lab.cu
-    (`csrc`, built with this tree's nvcc flags), function by function:
-    identical or not, with their instruction counts. Returns the names
-    that differ."""
+    (`parent`, a ParentKernels), function by function: identical or not,
+    with their instruction counts. Returns the names that differ."""
     from skele_raytracer_tpu_torch.ops.cuda import _build
 
-    out = os.path.join(REPO, "build", "parent_kernels", "culled_lab.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    proc = subprocess.run(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out,
-         os.path.join(csrc, "culled_lab.cu")], capture_output=True,
-        text=True, timeout=600)
-    check(proc.returncode == 0,
-          f"parent culled_lab.cu build failed:\n{proc.stderr}")
+    csrc = parent.csrc
     mine = sass_functions(_build.build_cuda("culled_lab"))
-    theirs = sass_functions(out)
+    theirs = sass_functions(parent.paths["culled_lab"])
     if mine is None:
         print("[sass] culled_lab against the parent: not measured (no "
               "cuobjdump)")
         return []
-    names = sorted(n for n in theirs if n.startswith(LAB_TILE_KERNELS))
+    names = sorted(n for n in theirs if n.startswith(LAB_SAME_AS_PARENT))
     differ = [n for n in names if mine.get(n) != theirs[n]]
-    print(f"[sass] culled_lab's tile-walk instances against the parent's "
+    print(f"[sass] culled_lab's instances of {', '.join(LAB_SAME_AS_PARENT)} "
+          f"against the parent's "
           f"({csrc}): {len(names) - len(differ)} of {len(names)} identical"
           + "".join(f"; {n} differs ({len(mine.get(n, []))} against "
                     f"{len(theirs[n])} instructions)" for n in differ))
@@ -970,7 +971,8 @@ def phase_sass_lab(parent=None):
     library: each bf16x3 (passes 3) instance must hold them, which shows
     that its product runs on the tensor cores; the registers, spills
     and static shared memory of LAB_PTXAS from the build's ptxas lines;
-    with `parent`, `lab_sass_against` its csrc."""
+    the size of each G 2 instance's column step (`sass_scan_loops`); with
+    `parent`, `lab_sass_against` its csrc."""
     from skele_raytracer_tpu_torch.ops.cuda import _build
 
     log = _build.build_logs.get("culled_lab")
@@ -983,7 +985,7 @@ def phase_sass_lab(parent=None):
         print("[sass] culled_lab: not measured (no cuobjdump)")
         return
     if parent is not None:
-        lab_sass_against(parent.csrc)
+        lab_sass_against(parent)
     counts = {name: sum("HMMA" in op for op in ops)
               for name, ops in funcs.items()
               if name.startswith(("lab_v6_kernel", "lab_v5_kernel",
@@ -995,6 +997,12 @@ def phase_sass_lab(parent=None):
     check(len(p3) == 12 and all(p3.values()),
           f"L1/L2/L5/L6's bf16x3 instances lack tensor-core instructions: "
           f"{counts}")
+    loops = sass_scan_loops(_build.build_cuda("culled_lab")) or {}
+    print("[sass] culled_lab at G 2, innermost loops with a reciprocal (one "
+          "step: 8 columns at p3, 4 at p6), (instructions, MUFU): "
+          + "; ".join(f"{k} " + ", ".join(f"({a}, {b})" for a, b in v)
+                      for k, v in sorted(loops.items())
+                      if k.endswith(", 2>") or k == "lab_presplit_kernel<2>"))
 
 
 def phase_k1_headlines(smi, parent=None):
@@ -1731,11 +1739,17 @@ def phase_mesh_timings(smi, parent=None):
 
 
 # rows held on the card beyond the TPU files': L2 and L1's folded path at
-# full FP32 (bitwise against their plain versions and K3), one group size
+# full FP32 (bitwise against their plain versions and K3), one group size;
+# L2 without its split control path (LAB_SAME_ROWS)
 LAB_EXTRA_ROWS = {
     "v5_g2_p6": ("lab_v5", dict(group_c=2, passes=6)),
     "v6_g1_p6": ("lab_v6", dict(group_c=1, passes=6)),
+    "v5_g2_p3_nosplit": ("lab_v5", dict(group_c=2, passes=3,
+                                        split_path=False)),
 }
+# rows whose answers must be bitwise equal on every ray: a switch that
+# changes no output bit
+LAB_SAME_ROWS = {"v5_g2_p3_nosplit": "v5_g2_p3"}
 # bf16x3 rows, folded and unfolded, whose disagreements with K3 are listed
 LAB_P3_EXPLAINED = ("v6_g2_p3 (per-plane)", "lab_3pass")
 # the row of each lab kernel that stands for it in the kernels' JSON line
@@ -1750,30 +1764,40 @@ LAB_JSON_ROWS = {"lab_v6": ("tools/lab_v5.py:190", "v6_g2_p3 (per-plane)"),
 # fragments
 LAB_TWINS = {"flat_g2": "lab_base", "flat_g2_3p": "lab_3pass",
              "flat_g4_3p": "lab_3pass", "presplit_g2": "lab_3pass"}
-# the L3 and L5 rows' device ms per launch before the split walk, one block
-# walking each tile (this script's final run at commit 7caea27, NVIDIA H100
-# 80GB HBM3, 700.00 W: `git show 7caea27:PERF.md`; the other rows' were not
-# recorded)
-LAB_TILE_WALK_MS = {"lab_base": 1.6576, "lab_3pass": 1.6370,
-                    "flat_g2": 1.7534, "flat_g2_3p": 1.8739,
-                    "flat_g4_3p": 2.1568}
+# the split walk's rows' device ms per launch before it, one block walking
+# each tile, and the commit measured (NVIDIA H100 80GB HBM3, 700.00 W): L3
+# and L5 this script's final run at 7caea27 (`git show 7caea27:PERF.md`; the
+# other L3 rows' were not recorded); L1 and L2 the profiler's, at 9dc878d,
+# from a run of kernel_lab.evaluate over these rows (PERF.md, PR 13)
+LAB_TILE_WALK_MS = {
+    "lab_base": (1.6576, "7caea27"), "lab_3pass": (1.6370, "7caea27"),
+    "flat_g2": (1.7534, "7caea27"), "flat_g2_3p": (1.8739, "7caea27"),
+    "flat_g4_3p": (2.1568, "7caea27"),
+    "v5_g2_p3": (1.5583, "9dc878d"),
+    "v6_g2_p3 (per-plane)": (1.5610, "9dc878d"),
+    "v6_g2_p3_pergroup": (1.5713, "9dc878d"),
+    "v6_g2_p6 (per-plane)": (1.5098, "9dc878d"),
+    "v6_g4_p3 (per-plane)": (1.7813, "9dc878d"),
+    "v5_g2_p6": (1.5275, "9dc878d"), "v6_g1_p6": (1.4980, "9dc878d"),
+    "v5_g2_p3_nosplit": (1.5597, "9dc878d")}
 
 
 def lab_split_line(res, smi):
-    """`[lab]`'s line for a row of the split walk (L3, L5): the device time
-    per call (the sum of its three kernels), beside the same kernel with
-    one item per tile, the tile walk's time before the split walk and the
-    bound; its items; the rays that differ from the plain version and from
-    one item per tile, live and dead."""
+    """`[lab]`'s line for a row of the split walk (L1, L2, L3, L5): the
+    device time per call (the sum of its three kernels), beside the same
+    kernel with one item per tile, the tile walk's time before the split
+    walk (LAB_TILE_WALK_MS) and the bound; its items; the rays that differ
+    from the plain version and from one item per tile, live and dead."""
     from skele_raytracer_tpu_torch.ops.cuda import lab
 
     ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-    before = LAB_TILE_WALK_MS.get(res["name"])
+    before, commit = LAB_TILE_WALK_MS.get(res["name"], (None, None))
     return (f"[lab] split {res['name']}: {ms(res['dev_ms'])} per call "
             f"(init + walk + unpack, profiler sum; slope {res['ms']:.4f} ms); "
             f"one item per tile {ms(res['tile_dev_ms'])} (slope "
-            f"{res['tile_ms']:.4f} ms); one block per tile at 7caea27: "
-            f"{ms(before) if before else 'not recorded'}; bound "
+            f"{res['tile_ms']:.4f} ms); one block per tile "
+            + (f"at {commit}: {ms(before)}" if before else "not recorded")
+            + f"; bound "
             f"{res['bound'][0]:.4f} ms by {res['bound'][1]}; {res['items']} "
             f"items of at most {lab.ITEM_GROUPS} groups, the longest "
             f"{res['longest']} ({int(res['walked'].max())} in the longest "
@@ -1787,7 +1811,68 @@ def lab_split_line(res, smi):
             f"{res['vs_tile'][1]}; on {smi}")
 
 
-def phase_lab(smi):
+def lab_fold_lines(b, rows, smi):
+    """`[lab] fold`: each L1 and L2 row (the folded blocks) beside L3
+    (`lab_base`, gate_settle off) at the same G and passes, both on the
+    split walk, timed in turns (profiler, the sum of each call's three
+    kernels), with the rays on which their answers differ (none at passes
+    6, where both are bitwise K3's on the live rays; at passes 3 the two
+    layouts feed the tensor cores other fragments)."""
+    from skele_raytracer_tpu_torch.ops.cuda import lab
+    from skele_raytracer_tpu_torch.tools import kernel_lab as kl
+
+    ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    for name, res in rows.items():
+        if res["kind"] not in lab.FOLDED:
+            continue
+        g, p = res["kw"].get("group_c", 2), res["passes"]
+        kw = dict(group_c=g, passes=p, gate_settle=False)
+        twin = lambda: lab.lab_nearest_kernel("lab_base", b, **kw)
+        mine = lambda: lab.lab_nearest_kernel(res["kind"], b, **res["kw"])
+        d = kl.differ(mine(), twin(), b.live)
+        t_mine = kl.profiler_ms(mine, kl.kernel_tag(res["kind"], res["kw"]))
+        t_twin = kl.profiler_ms(twin, kl.kernel_tag("lab_base", kw))
+        ratio = ("" if None in (t_mine, t_twin)
+                 else f" ({t_mine / t_twin:.3f}x)")
+        print(f"[lab] fold {name}: {ms(t_mine)} against L3 at G {g} p{p} "
+              f"{ms(t_twin)}{ratio}; rays differing live {d[0]} dead "
+              f"{d[1]}; on {smi}")
+        if p == 6:
+            check(d[0] == 0, f"[lab] {name} differs from L3 at G {g} p6 on "
+                  f"{d[0]} live rays")
+
+
+def lab_parent_lines(b, rows, parent, smi):
+    """`[lab] parent`: each L1 and L2 row on the parent tree's culled_lab.cu
+    (`parent`, a ParentKernels: its kernels walk a tile per block) beside
+    this tree's split walk, timed in turns (profiler: the parent's one
+    kernel per call, this tree's three), and the rays on which the two
+    answers differ (none may, live or dead: the split walk's merge is
+    exact and its items stop only where the tile walk would)."""
+    from skele_raytracer_tpu_torch.ops.cuda import lab
+    from skele_raytracer_tpu_torch.tools import kernel_lab as kl
+
+    ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    for name, res in rows.items():
+        if res["kind"] not in lab.FOLDED:
+            continue
+        kind, kw = res["kind"], res["kw"]
+        mine = lambda: lab.lab_nearest_kernel(kind, b, **kw)
+        theirs = lambda: parent.call(lab, mine)
+        d = kl.differ(mine(), theirs(), None)
+        tag = f"{kind}_kernel<{res['passes']}, {kw.get('group_c', 2)}>"
+        t_old = kl.profiler_ms(theirs, tag)
+        t_new = kl.profiler_ms(mine, kl.kernel_tag(kind, kw))
+        t_old2 = kl.profiler_ms(theirs, tag)
+        t_new2 = kl.profiler_ms(mine, kl.kernel_tag(kind, kw))
+        print(f"[lab] parent {name}: the parent's tile walk {ms(t_old)}, "
+              f"{ms(t_old2)}; this tree's split walk {ms(t_new)}, "
+              f"{ms(t_new2)} (in turns); rays differing {d[0]}; on {smi}")
+        check(d[0] == 0, f"[lab] {name} differs from the parent's kernel on "
+              f"{d[0]} rays")
+
+
+def phase_lab(smi, parent=None):
     """`[lab]`: the kernel lab (ops/cuda/lab.py, csrc/culled_lab.cu) at the
     full dragon bounce batch of skele_raytracer_tpu_torch/tools/
     kernel_lab.py (131,072 rays): every row of the three harnesses
@@ -1805,15 +1890,18 @@ def phase_lab(smi):
     40 launches, and profiler), its plain version's time and its bound
     (`lab_work`); the mm rows with torch.matmul's time; L5's and L6's rows
     against their L3 twins (LAB_TWINS: equal on every live ray; rays that
-    differ off the live set are counted); the split walk's rows (L3, L5)
-    also with `lab_split_line` (device time per call as the sum of its
-    three kernels, beside one item per tile and LAB_TILE_WALK_MS; its
+    differ off the live set are counted); the split walk's rows (L1, L2,
+    L3, L5) also with `lab_split_line` (device time per call as the sum of
+    its three kernels, beside one item per tile and LAB_TILE_WALK_MS; its
     items), each bitwise equal to the same kernel with one item per tile
     on every ray, live and dead, and its longest item shorter than the
     longest tile's walk; each L5 row against L3 at the same G and one
-    block per SM, L5's occupancy (bitwise, timed); the split walk's
-    `kl.items_sweep` (1-4 groups per item and one item per tile); the
-    cs-sweep (K3 over five clusterings, equal). Returns the JSON entries of L1-L6 without their launches."""
+    block per SM, L5's occupancy (bitwise, timed); LAB_SAME_ROWS bitwise
+    on every ray; `lab_fold_lines` (L1 and L2 against L3); the split
+    walk's `kl.items_sweep` (1-4 groups per item and one item per tile);
+    the cs-sweep (K3 over five clusterings, equal); with `parent`,
+    `lab_parent_lines`. Returns the JSON entries of L1-L6 without their
+    launches."""
     from skele_raytracer_tpu_torch.ops.cuda import lab
     from skele_raytracer_tpu_torch.tools import kernel_lab as kl
     from skele_raytracer_tpu_torch.tools import lab_probe, lab_v5
@@ -1897,6 +1985,15 @@ def phase_lab(smi):
               f"rays differing live {d[0]} dead {d[1]}; on {smi}")
         check(d == (0, 0), f"[lab] {name} differs from L3 at one block per "
               f"SM on {d} (live, dead) rays")
+    for name, same in LAB_SAME_ROWS.items():
+        d = kl.differ(rows[name]["out"], rows[same]["out"], b.live)
+        print(f"[lab] {name} against {same}: rays differing live {d[0]} "
+              f"dead {d[1]}")
+        check(d == (0, 0), f"[lab] {name} differs from {same} on {d} (live, "
+              f"dead) rays")
+    lab_fold_lines(b, rows, smi)
+    if parent is not None:
+        lab_parent_lines(b, rows, parent, smi)
     kl.items_sweep(b, emit=lambda text: print(f"[lab] items-sweep {text} on "
                                               f"{smi}"))
     same = kl.cs_sweep("cuda",
@@ -3629,7 +3726,7 @@ def main() -> int:
     phase_k1_headlines(smi, parent)
     mesh_counts = phase_mesh_main_path()
     times = phase_mesh_timings(smi, parent)
-    lab_rows = phase_lab(smi)
+    lab_rows = phase_lab(smi, parent)
     phase_median(smi)
     phase_fd()
     t0 = time.perf_counter()

@@ -30,17 +30,19 @@
 // unconditional group with or without the epilogue: wrong on purpose,
 // timing only). None changes an output bit except L4's stages.
 //
-// Design. L1, L2, L4 and L6: one block of 256 threads per tile, which walks
-// the tile's groups in order. L3 and L5 (the split walk): a tile's walk is
-// cut into work items of at most item_groups groups (lab::item_at; every
+// Design. L4 and L6: one block of 256 threads per tile, which walks the
+// tile's groups in order. L1, L2, L3 and L5 (the split walk): a tile's walk
+// is cut into work items of at most item_groups groups (lab::item_at; every
 // tile's full items first, then the shorter last ones), which a persistent
 // grid of blocks (blocks per SM times the SMs) takes from an atomic
 // counter, so that no long tile runs alone at the end of a launch; each
-// item is walked as a tile is (the settle test from its own bests), and
-// each ray's best is merged into a 64-bit key (lab::best_key: t's bits,
-// then the index) with atomicMin: exact, and the same in any order of the
-// items. Three kernels per call: lab_split_init (the keys, the items'
-// prefix sums, the counter and the root box), the walk, lab_split_unpack.
+// item is walked as a tile is (the settle test from its own bests; L1's and
+// L2's split control path: a tile with counts <= group_c is one item of one
+// group, with no settle test and no barrier after it), and each ray's best
+// is merged into a 64-bit key (lab::best_key: t's bits, then the index)
+// with atomicMin: exact, and the same in any order of the items. Three
+// kernels per call: lab_split_init (the keys, the items' prefix sums, the
+// counter and the root box), the walk, lab_split_unpack.
 // A group's cluster blocks (rows x 4 planes x cs floats, plus the aux
 // rows) go into one of two shared-memory stages through the bulk
 // asynchronous copy unit
@@ -333,11 +335,13 @@ __device__ __forceinline__ void mma_group(const float* st,
 
 // ---- the tile ------------------------------------------------------------
 
-// L1, L2, L4, L6: block `blockIdx.x` walks tile blockIdx.x whole and
-// writes its rays' answers. The same steps as the split walk's
-// thread_rows, load_rays and walk_groups below, written out as before it,
-// so that these four kernels compile to the instructions they had (calls
-// of the helpers move the register allocation).
+// L4, L6: block `blockIdx.x` walks tile blockIdx.x whole and writes its
+// rays' answers. The same steps as the split walk's thread_rows, load_rays
+// and walk_groups below, written out as before it, so that these two
+// kernels compile to the instructions they had (calls of the helpers move
+// the register allocation); `once` on `a.split` is L1's and L2's split
+// control path from before they took the split walk: L4 and L6 never set
+// split.
 template <int PASSES, int G, int L>
 __device__ __forceinline__ void lab_tile(
     const LabArgs& a, const float* __restrict__ feats,
@@ -477,7 +481,7 @@ __device__ __forceinline__ void lab_tile(
 }
 
 
-// ---- the split walk (L3, L5) ----------------------------------------------
+// ---- the split walk (L1, L2, L3, L5) ------------------------------------
 
 // The rows of its tile that a thread holds: passes = 3 four, rays
 // (lane / 4) + 8 k' of its warp's two 16-ray A tiles; passes = 6 its own.
@@ -536,9 +540,11 @@ __device__ __forceinline__ void load_rays(
 // shortlist; ent_row: its sorted entries) folded into the thread's bests
 // (tb, ib), through the ring: the first one or two loads start here, each
 // later one once its stage is free. After a group (unless no_exit, or
-// gate after the range's last group) the settle test: stop
-// once the next group's entry lies past the block's largest min(best t,
-// root exit). Loads may be in flight at the end: the caller drains.
+// gate after the range's last group, or `once` on the folded blocks: L1's
+// and L2's split control path, whose range is a tile's only group) the
+// settle test: stop once the next group's entry lies past the block's
+// largest min(best t, root exit). Loads may be in flight at the end: the
+// caller drains.
 template <int PASSES, int G, int L, int NR>
 __device__ __forceinline__ void walk_groups(
     cw::Ring& ring, const LabArgs& a, const float* __restrict__ K,
@@ -546,7 +552,7 @@ __device__ __forceinline__ void walk_groups(
     const float* ent_row, int p0, int p1, const float (&texit)[NR],
     const float (&f)[kFeat], const uint32_t (&ahi)[2][4],
     const uint32_t (&alo)[2][4], float (&tb)[NR], int32_t (&ib)[NR],
-    float (*s_red)[kWarps]) {
+    float (*s_red)[kWarps], bool once) {
   constexpr int S = stages_of(L, G);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   fetch_group<L>(ring, K, aux, order_row, p0, G, a);
@@ -559,7 +565,7 @@ __device__ __forceinline__ void walk_groups(
     else
       scalar_group<G, L>(st, f, a, tb[0], ib[0]);
     const bool last = p + 1 >= p1;
-    if (!a.no_exit && !(a.gate && last)) {
+    if (!(L == kFolded && once) && !a.no_exit && !(a.gate && last)) {
       // the settle bound: the tile's largest min(best t, root exit)
       float v = lab::min_nan(tb[0], texit[0]);
 #pragma unroll
@@ -654,9 +660,11 @@ __device__ __forceinline__ void lab_items(
     uint32_t ahi[2][4], alo[2][4];
     load_rays<PASSES>(feats, base, ray, w.root, w.root + 3, texit, f, ahi,
                       alo);
+    bool once = false;  // L1, L2: the split control path
+    if constexpr (L == kFolded) once = a.split && counts[tile] <= G;
     walk_groups<PASSES, G, L>(ring, a, K, aux, order + (size_t)tile * a.C,
                               ent + (size_t)tile * (a.C + 1), si[1], si[2],
-                              texit, f, ahi, alo, tb, ib, s_red);
+                              texit, f, ahi, alo, tb, ib, s_red, once);
     ring.drain();
     if (writer)
 #pragma unroll
@@ -750,16 +758,17 @@ __global__ void __launch_bounds__(kThreads)
       const float* __restrict__ aux, SplitWork w
 #define ITEM_PASS a, feats, order, counts, ent, K, aux, w
 
-// L1: folded blocks, the split path always, per_group.
+// L1: folded blocks, the split control path always, per_group; the split
+// walk.
 template <int PASSES, int G>
-__global__ void __launch_bounds__(kThreads) lab_v6_kernel(LAB_ARGS) {
-  lab_tile<PASSES, G, kFolded>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads) lab_v6_kernel(ITEM_ARGS) {
+  lab_items<PASSES, G, kFolded>(ITEM_PASS);
 }
 
-// L2: folded blocks, the split path as a switch.
+// L2: folded blocks, the split control path as a switch; the split walk.
 template <int PASSES, int G>
-__global__ void __launch_bounds__(kThreads) lab_v5_kernel(LAB_ARGS) {
-  lab_tile<PASSES, G, kFolded>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads) lab_v5_kernel(ITEM_ARGS) {
+  lab_items<PASSES, G, kFolded>(ITEM_PASS);
 }
 
 // L3: unfolded blocks; thin, gate, no_exit; the split walk.
@@ -790,8 +799,8 @@ __global__ void __launch_bounds__(kThreads) lab_presplit_kernel(LAB_ARGS) {
 using TileFn = void (*)(LAB_ARGS);
 using ItemFn = void (*)(ITEM_ARGS);
 
-// A kind's kernel at (passes, G): the tile walk (L1, L2, L4, L6) or the
-// split walk (L3, L5); neither where the kind is not built so.
+// A kind's kernel at (passes, G): the tile walk (L4, L6) or the split walk
+// (L1, L2, L3, L5); neither where the kind is not built so.
 struct Kernel {
   TileFn tile = nullptr;
   ItemFn item = nullptr;
@@ -805,10 +814,10 @@ Kernel kernel_of(int kind) {
   Kernel k;
   switch (kind) {
     case 0:
-      k.tile = lab_v6_kernel<PASSES, G>;
+      k.item = lab_v6_kernel<PASSES, G>;
       break;
     case 1:
-      k.tile = lab_v5_kernel<PASSES, G>;
+      k.item = lab_v5_kernel<PASSES, G>;
       break;
     case 2:
       k.item = lab_base_kernel<PASSES, G>;
@@ -892,16 +901,17 @@ SplitWork split_work(void* work, int n_tiles, int item_groups) {
 
 }  // namespace
 
-// Bytes of the scratch buffer the split walk (L3, L5) takes for n_tiles
-// tiles (SplitWork); 8-byte aligned.
+// Bytes of the scratch buffer the split walk (L1, L2, L3, L5) takes for
+// n_tiles tiles (SplitWork); 8-byte aligned.
 extern "C" long long culled_lab_workspace(int n_tiles) {
   return 8LL * n_tiles * lab::TILE + 4LL * (2 * (n_tiles + 1) + 1 + 6);
 }
 
 // Blocks of lab kernel `kind` (as `culled_lab`) that one SM holds at once
 // at this launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
-// registers, shared memory), or minus a CUDA error. For L3 and L5 that of
-// the split walk's kernel, whose persistent grid is this times the SMs.
+// registers, shared memory), or minus a CUDA error. For L1, L2, L3 and L5
+// that of the split walk's kernel, whose persistent grid is this times the
+// SMs.
 extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
                                     int cs) {
   const Kernel k = kernel_of(kind, passes, group_c);
@@ -920,8 +930,8 @@ extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
 // [n_tiles, C + 1], lo/hi [C, 3], K [C, rows, 4, cs] (kinds 0-1: k10, rows
 // 10; 2-3: kc, rows 9; 4: kcf, rows 16; 5: kc's words, rows 9), aux
 // [C, aux rows, cs] (kinds 0-1: org; else aux). Writes t [n_tiles 256]
-// (BIG = miss) and the original index (BIG_I = miss). Kinds 0, 1, 3, 5:
-// one kernel, a block per tile. Kinds 2 and 4 (the split walk): three
+// (BIG = miss) and the original index (BIG_I = miss). Kinds 3 and 5: one
+// kernel, a block per tile. Kinds 0, 1, 2 and 4 (the split walk): three
 // kernels, lab_split_init, the walk on a persistent grid (blocks per SM
 // times the SMs, at most the items there can be; with sm_blocks > 0 at
 // most sm_blocks per SM, for measurement) taking items of at most

@@ -59,15 +59,16 @@ tile, from no hit, with the settle test from that range's own bests: the
 answer of one work item of the split walk below.
 
 `lab_nearest_kernel` launches csrc/culled_lab.cu on CUDA tensors and
-raises on anything else; `lab_nearest` picks by the batch's device. L1,
-L2, L4 and L6 walk a tile per block. L3 and L5 (SPLIT) take the split
-walk: each tile's groups cut into work items of at most `item_groups`
-groups (`work_items`: every tile's full items, then the shorter last
-ones), taken by a persistent grid, each ray's best merged exactly by a
-64-bit atomicMin of (t bits, index); three kernels per call
-(KERNELS_PER_CALL). For live rays the answer is the whole walk's (the
-settle test is conservative); a dead ray's equals it wherever the whole
-walk does not stop early.
+raises on anything else; `lab_nearest` picks by the batch's device. L4 and
+L6 walk a tile per block. L1, L2, L3 and L5 (SPLIT) take the split walk:
+each tile's groups cut into work items of at most `item_groups` groups
+(`work_items`: every tile's full items, then the shorter last ones), taken
+by a persistent grid, each ray's best merged exactly by a 64-bit atomicMin
+of (t bits, index); three kernels per call (KERNELS_PER_CALL). L1's and
+L2's split control path makes a tile with counts <= group_c one item of one
+group with no settle test. For live rays the answer is the whole walk's
+(the settle test is conservative); a dead ray's equals it wherever the
+whole walk does not stop early.
 """
 
 from __future__ import annotations
@@ -111,7 +112,7 @@ PAD = 4  # floats after each staged row of 4 cs (csrc/culled_lab.cu kPad)
 
 # The kernels that take the split walk, its groups per work item by
 # default, and the CUDA kernels one wrapper call launches
-SPLIT = ("lab_base", "lab_flat")
+SPLIT = ("lab_v6", "lab_v5", "lab_base", "lab_flat")
 ITEM_GROUPS = 2
 KERNELS_PER_CALL = {k: 3 if k in SPLIT else 1 for k in KERNELS}
 

@@ -37,7 +37,7 @@ K3 itself.
 `cs-sweep` runs K3 at cluster sizes 256, 128 and 64 with tiles of 256 and
 128 rays (the shortlists' mean length), unsorts its answers and holds
 them against the first clustering's. `items-sweep` times the split walk's
-rows (L3, L5) at 1-4 groups per work item and at one item per tile
+rows (L1, L2, L3, L5) at 1-4 groups per work item and at one item per tile
 (`items_sweep`). `--device cpu` runs the plain
 versions (ops/cuda/lab.py) and K3's, with no timing; `--samples` cuts the
 batch (a multiple of 16).
@@ -479,8 +479,8 @@ SPLIT_KERNELS = ("lab_split_init", "lab_split_unpack")
 
 def kernel_tag(kind: str, kw: dict):
     """The profiler names of the kernels one call of a row launches: its
-    kernel instance (L6's has no passes), and for the split walk (L3, L5)
-    SPLIT_KERNELS too."""
+    kernel instance (L6's has no passes), and for the split walk (L1, L2,
+    L3, L5) SPLIT_KERNELS too."""
     g = kw.get("group_c", 2)
     if kind == "lab_presplit":
         return f"{kind}_kernel<{g}>"
@@ -683,19 +683,24 @@ def run_rows(rows: dict, names, device: str, samples: int, ref_label: str,
     return out
 
 
-# the split walk's rows that `items_sweep` times at each item length
-SWEEP_ROWS = ("lab_base", "lab_3pass", "flat_g2", "flat_g2_3p", "flat_g4_3p")
+# the split walk's rows that `items_sweep` times at each item length (L3,
+# L5 of ROWS; L1, L2 of lab_v5.ROWS)
+SWEEP_ROWS = ("lab_base", "lab_3pass", "flat_g2", "flat_g2_3p", "flat_g4_3p",
+              "v6_g2_p3 (per-plane)", "v5_g2_p3")
 
 
 def items_sweep(b: lab.LabBatch, emit=print, names=SWEEP_ROWS,
                 lengths=(1, 2, 3, 4)):
-    """The split walk's rows `names` on the card at each item length of
-    `lengths` (groups per item) and at one item per tile (`whole_tiles`):
-    each one's items, the longest, and its device ms per call (profiler,
-    summed over the call's kernels, and the slope); each line goes to
-    `emit`."""
+    """The split walk's rows `names` (of ROWS and lab_v5.ROWS) on the card
+    at each item length of `lengths` (groups per item) and at one item per
+    tile (`whole_tiles`): each one's items, the longest, and its device ms
+    per call (profiler, summed over the call's kernels, and the slope);
+    each line goes to `emit`."""
+    from skele_raytracer_tpu_torch.tools import lab_v5
+
+    rows = {**ROWS, **lab_v5.ROWS}
     for name in names:
-        kind, kw = ROWS[name]
+        kind, kw = rows[name]
         g = kw.get("group_c", 2)
         for L in (*lengths, whole_tiles(b, g)):
             fn = lambda: lab.lab_nearest_kernel(kind, b, item_groups=L, **kw)

@@ -1,7 +1,9 @@
-"""The split walk of the kernel lab's L3 `lab_base` and L5 `lab_flat`
-(csrc/culled_lab.cu `lab_items`): a tile's walk cut into work items of a
-few groups each, walked by many blocks, and each ray's best merged by a
-64-bit key (csrc/lab_math.cuh `best_key`, `min_key`, `item_at`).
+"""The split walk of the kernel lab's L1 `lab_v6`, L2 `lab_v5`, L3
+`lab_base` and L5 `lab_flat` (csrc/culled_lab.cu `lab_items`): a tile's
+walk cut into work items of a few groups each, walked by many blocks, and
+each ray's best merged by a 64-bit key (csrc/lab_math.cuh `best_key`,
+`min_key`, `item_at`); L1's and L2's split control path (a tile with counts
+<= group_c: one item of one group, no settle test).
 
 Batches: tests/test_torch_lab.py's synthetic `lab_case` (512 rays in 2
 tiles of 256, a seeded 200-triangle mesh in 4 clusters of 64, 30% dead
@@ -19,7 +21,7 @@ All bitwise:
   and merged by the host build's keys, against the whole plain walk: on
   the live rays for every switch, on every ray with no_early_exit (the
   settle test is conservative for the live rays only), at group_c 1, 2
-  and 4, both layouts and both products;
+  and 4, the three layouts (folded, unfolded, padded) and both products;
 * the host build's work items against `lab.work_items`: each tile's
   groups covered once, no item longer than its bound.
 The CUDA kernels against their plain versions: the `cuda` test, which
@@ -41,13 +43,17 @@ from skele_raytracer_tpu_torch.tools import kernel_lab
 P = ctypes.c_void_p
 BIG, BIG_I = lab.BIG, lab.BIG_I
 ITEMS = (1, 2)  # item lengths the merge is built from, in groups
-# (kernel, switches) of the L3 and L5 rows' families
+# (kernel, switches) of the L1, L2, L3 and L5 rows' families
 SWITCHES = [("lab_base", dict(gate_settle=False)),
             ("lab_base", dict(gate_settle=True)),
             ("lab_base", dict(gate_settle=True, thin_epilogue=True)),
             ("lab_base", dict(gate_settle=False, thin_epilogue=True)),
             ("lab_base", dict(gate_settle=False, no_early_exit=True)),
-            ("lab_flat", {})]
+            ("lab_flat", {}),
+            ("lab_v6", {}),
+            ("lab_v6", dict(per_group=True)),
+            ("lab_v5", dict(split_path=True)),
+            ("lab_v5", dict(split_path=False))]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -302,8 +308,9 @@ def test_the_wrapper_refuses_an_empty_item(lab_case):
         lab.lab_nearest_kernel("lab_base", b, item_groups=0)
     with pytest.raises(ValueError, match="item_groups"):
         lab.work_items(b.counts, 2, 0)
-    assert lab.KERNELS_PER_CALL == {k: 3 if k in ("lab_base", "lab_flat")
-                                    else 1 for k in lab.KERNELS}
+    split = ("lab_v6", "lab_v5", "lab_base", "lab_flat")
+    assert lab.KERNELS_PER_CALL == {k: 3 if k in split else 1
+                                    for k in lab.KERNELS}
 
 
 @pytest.mark.cuda
