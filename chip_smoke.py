@@ -102,10 +102,12 @@ Phases, in order; any failure raises and exits nonzero:
    flags on >= 99.9% of rays, indices equal where t agrees to 1e-4) and
    against K3 (the full-FP32 walks bitwise), timed beside its bound (device
    ms per call: the sum of its kernels, three for the split walk of L1,
-   L2, L3 and L5, whose rows also print their work items and the same
-   kernel at one item per tile, bitwise equal on every ray, and the time
-   one block per tile took before the split walk; L5 also against L3 at
-   one block per SM; L1 and L2 against L3 at the same G and passes);
+   L2, L3, L5, L6 and L4's loop stage, whose rows also print their work
+   items and the same kernel at one item per tile, bitwise equal on every
+   ray, and the time one block per tile took before the split walk; one
+   for L4's full1 and mm stages, a stream of one group per tile, with its
+   persistent grid; L5 also against L3 at one block per SM; L1 and L2
+   against L3 at the same G and passes);
    L5's and L6's rows bitwise their L3 twins on the live rays; L2 without
    its split control path bitwise L2 with it on every ray; and the
    cs-sweep. `[median]` (`phase_median`): the lab batch on Morton runs and
@@ -175,12 +177,12 @@ csrc, e.g. `git archive` of it unpacked under build/), that tree's K1, K5,
 K7, K3/K4 and kernel lab are built too, held bitwise against this tree's
 (K1's r, g, b and records at both 1080p headlines, K5's t, index, u, v at
 its chunk, K7's outputs at dragon's chunk 37, the fused and split dragon
-frames, the lab's L1 and L2 rows on every ray) and timed in turns with
+frames, the lab's L1, L2, L4 and L6 rows on every ray) and timed in turns with
 them on the same inputs; `render` and a `train_step` at the 1080p
 headlines run through each tree's K1 in turns, and the fused and split
 dragon frames through each tree's kernels; `[sass]` compares the
-kernel lab's instances that must not change (LAB_SAME_AS_PARENT: L3, L4,
-L5, L6 and the split walk's first and last kernels) with that tree's
+kernel lab's instances that must not change (LAB_SAME_AS_PARENT: L1, L2,
+L3, L5 and the split walk's first and last kernels) with that tree's
 culled_lab.cu, function by function (`lab_sass_against`).
 
 Nothing here imports JAX. Scratch files go under build/smoke/.
@@ -901,18 +903,23 @@ def phase_sass(parent=None):
 
 
 # the lab instances whose registers and spills `phase_sass_lab` prints side
-# by side: every instance of the split walk (L1, L2, L3, L5; L5 at G 4
-# holds one stage of 16-row blocks), L6
+# by side: every instance of the split walk (L1, L2, L3 and L4's loop
+# stage, which launches L3's kernel, L5; L5 at G 4 holds one stage of
+# 16-row blocks; L6) and of L4's stream
 LAB_PTXAS = tuple(f"{k}_kernel<{p}, {g}>"
-                  for k in ("lab_v6", "lab_v5", "lab_base", "lab_flat")
-                  for p in (6, 3) for g in (1, 2, 4)) + (
-    "lab_presplit_kernel<2>",)
+                  for k in ("lab_v6", "lab_v5", "lab_base", "lab_flat",
+                            "lab_probe_stream")
+                  for p in (6, 3) for g in (1, 2, 4)) + tuple(
+    f"lab_presplit_kernel<{g}>" for g in (1, 2, 4))
+# the instances that must hold tensor-core instructions: every bf16x3 one
+# of every lab kernel
+LAB_HMMA = tuple(n for n in LAB_PTXAS if "<3," in n or "presplit" in n)
 
 
 # the lab kernels whose instances must compile as the parent tree's: the
-# tile walks (L4, L6), L3's and L5's split walk, its first and last kernels
-LAB_SAME_AS_PARENT = ("lab_probe_kernel", "lab_presplit_kernel",
-                      "lab_base_kernel", "lab_flat_kernel", "lab_split_init",
+# split walks of L1, L2, L3 and L5, its first and last kernels
+LAB_SAME_AS_PARENT = ("lab_v6_kernel", "lab_v5_kernel", "lab_base_kernel",
+                      "lab_flat_kernel", "lab_split_init",
                       "lab_split_unpack")
 
 
@@ -966,10 +973,10 @@ def lab_sass_against(parent):
 
 def phase_sass_lab(parent=None):
     """`[sass]`: the tensor-core instructions (HMMA) of every instance of
-    the kernel lab's L1, L2, L5 and L6 (culled_lab.cu lab_v6_kernel,
-    lab_v5_kernel, lab_flat_kernel, lab_presplit_kernel) in the built
-    library: each bf16x3 (passes 3) instance must hold them, which shows
-    that its product runs on the tensor cores; the registers, spills
+    the kernel lab's kernels in the built library: each bf16x3 (passes 3)
+    instance (LAB_HMMA: L1, L2, L3, which L4's loop stage launches, L5,
+    L6 and L4's stream) must hold them, which
+    shows that its product runs on the tensor cores; the registers, spills
     and static shared memory of LAB_PTXAS from the build's ptxas lines;
     the size of each G 2 instance's column step (`sass_scan_loops`); with
     `parent`, `lab_sass_against` its csrc."""
@@ -987,16 +994,12 @@ def phase_sass_lab(parent=None):
     if parent is not None:
         lab_sass_against(parent)
     counts = {name: sum("HMMA" in op for op in ops)
-              for name, ops in funcs.items()
-              if name.startswith(("lab_v6_kernel", "lab_v5_kernel",
-                                  "lab_flat_kernel", "lab_presplit_kernel"))}
+              for name, ops in funcs.items() if name.startswith("lab_")}
     print("[sass] culled_lab HMMA instructions: "
           + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
-    p3 = {k: v for k, v in counts.items()
-          if k.startswith("lab_presplit") or "<3," in k}
-    check(len(p3) == 12 and all(p3.values()),
-          f"L1/L2/L5/L6's bf16x3 instances lack tensor-core instructions: "
-          f"{counts}")
+    check(all(counts.get(n) for n in LAB_HMMA),
+          f"the lab's bf16x3 instances lack tensor-core instructions: "
+          f"{ {n: counts.get(n) for n in LAB_HMMA} }")
     loops = sass_scan_loops(_build.build_cuda("culled_lab")) or {}
     print("[sass] culled_lab at G 2, innermost loops with a reciprocal (one "
           "step: 8 columns at p3, 4 at p6), (instructions, MUFU): "
@@ -1748,15 +1751,21 @@ LAB_EXTRA_ROWS = {
                                         split_path=False)),
 }
 # rows whose answers must be bitwise equal on every ray: a switch that
-# changes no output bit
-LAB_SAME_ROWS = {"v5_g2_p3_nosplit": "v5_g2_p3"}
+# changes no output bit; L4's loop stage, which is L3's walk with
+# gate_settle off
+LAB_SAME_ROWS = {"v5_g2_p3_nosplit": "v5_g2_p3",
+                 "loop_g2_p6 (prod-like)": "lab_base",
+                 "loop_g2_p3": "lab_3pass"}
 # bf16x3 rows, folded and unfolded, whose disagreements with K3 are listed
 LAB_P3_EXPLAINED = ("v6_g2_p3 (per-plane)", "lab_3pass")
-# the row of each lab kernel that stands for it in the kernels' JSON line
+# the row of each lab kernel that stands for it in the kernels' JSON line,
+# and the rows shown beside it (`beside`: L4's split walk beside its
+# one-group stream)
 LAB_JSON_ROWS = {"lab_v6": ("tools/lab_v5.py:190", "v6_g2_p3 (per-plane)"),
                  "lab_v5": ("tools/lab_v5.py:36", "v5_g2_p3"),
                  "lab_base": ("tools/kernel_lab.py:194", "lab_base"),
-                 "lab_probe": ("tools/lab_probe.py:26", "mm_g2_p3"),
+                 "lab_probe": ("tools/lab_probe.py:26", "mm_g2_p3",
+                               "loop_g2_p3"),
                  "lab_flat": ("tools/kernel_lab.py:478", "flat_g2_3p"),
                  "lab_presplit": ("tools/kernel_lab.py:620", "presplit_g2")}
 # L5's and L6's rows and the L3 row whose answer each must give bitwise on
@@ -1779,15 +1788,21 @@ LAB_TILE_WALK_MS = {
     "v6_g2_p6 (per-plane)": (1.5098, "9dc878d"),
     "v6_g4_p3 (per-plane)": (1.7813, "9dc878d"),
     "v5_g2_p6": (1.5275, "9dc878d"), "v6_g1_p6": (1.4980, "9dc878d"),
-    "v5_g2_p3_nosplit": (1.5597, "9dc878d")}
+    "v5_g2_p3_nosplit": (1.5597, "9dc878d"),
+    # L6 and L4's loop: this script's final run at 92b17b9 (`git show
+    # 92b17b9:PERF.md`)
+    "presplit_g2": (1.3539, "92b17b9"),
+    "loop_g2_p6 (prod-like)": (1.6591, "92b17b9"),
+    "loop_g2_p3": (1.6381, "92b17b9")}
 
 
 def lab_split_line(res, smi):
-    """`[lab]`'s line for a row of the split walk (L1, L2, L3, L5): the
-    device time per call (the sum of its three kernels), beside the same
-    kernel with one item per tile, the tile walk's time before the split
-    walk (LAB_TILE_WALK_MS) and the bound; its items; the rays that differ
-    from the plain version and from one item per tile, live and dead."""
+    """`[lab]`'s line for a row of the split walk (L1, L2, L3, L5, L6, L4's
+    loop stage): the device time per call (the sum of its three kernels),
+    beside the same kernel with one item per tile, the tile walk's time
+    before the split walk (LAB_TILE_WALK_MS) and the bound; its items; the
+    rays that differ from the plain version and from one item per tile,
+    live and dead."""
     from skele_raytracer_tpu_torch.ops.cuda import lab
 
     ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
@@ -1842,34 +1857,58 @@ def lab_fold_lines(b, rows, smi):
                   f"{d[0]} live rays")
 
 
+# the lab kernels whose rows `lab_parent_lines` runs on the parent tree's
+# kernels too (a parent at 92b17b9 walks a tile per block in L4 and L6)
+LAB_PARENT_KINDS = ("lab_v6", "lab_v5", "lab_presplit", "lab_probe")
+
+
+def parent_tag(kind, kw):
+    """The profiler name of the parent tree's one kernel for a row of
+    LAB_PARENT_KINDS: a tile walk per block (L6's instance has no
+    passes)."""
+    g = kw.get("group_c", 2)
+    return (f"{kind}_kernel<{g}>" if kind == "lab_presplit"
+            else f"{kind}_kernel<{kw.get('passes', 6)}, {g}>")
+
+
 def lab_parent_lines(b, rows, parent, smi):
-    """`[lab] parent`: each L1 and L2 row on the parent tree's culled_lab.cu
-    (`parent`, a ParentKernels: its kernels walk a tile per block) beside
-    this tree's split walk, timed in turns (profiler: the parent's one
-    kernel per call, this tree's three), and the rays on which the two
-    answers differ (none may, live or dead: the split walk's merge is
-    exact and its items stop only where the tile walk would)."""
+    """`[lab] parent`: each row of LAB_PARENT_KINDS on the parent tree's
+    culled_lab.cu (`parent`, a ParentKernels: its L1 and L2 take the split
+    walk, its L4 and L6 walk a tile per block) beside this tree's kernel,
+    timed in turns (profiler: each call's kernels summed), and the rays on
+    which the two answers differ (none may, live or dead: the split walk's
+    merge is exact and its items stop only where the tile walk would; L4's
+    stream computes each tile's one group as the tile walk did). Returns
+    {row: (parent ms, this tree's ms, rays differing)} of the first turns."""
     from skele_raytracer_tpu_torch.ops.cuda import lab
     from skele_raytracer_tpu_torch.tools import kernel_lab as kl
 
     ms = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    out = {}
     for name, res in rows.items():
-        if res["kind"] not in lab.FOLDED:
+        if res["kind"] not in LAB_PARENT_KINDS:
             continue
         kind, kw = res["kind"], res["kw"]
         mine = lambda: lab.lab_nearest_kernel(kind, b, **kw)
         theirs = lambda: parent.call(lab, mine)
         d = kl.differ(mine(), theirs(), None)
-        tag = f"{kind}_kernel<{res['passes']}, {kw.get('group_c', 2)}>"
+        tag, new_tag = parent_tag(kind, kw), kl.kernel_tag(kind, kw)
         t_old = kl.profiler_ms(theirs, tag)
-        t_new = kl.profiler_ms(mine, kl.kernel_tag(kind, kw))
+        t_new = kl.profiler_ms(mine, new_tag)
         t_old2 = kl.profiler_ms(theirs, tag)
-        t_new2 = kl.profiler_ms(mine, kl.kernel_tag(kind, kw))
-        print(f"[lab] parent {name}: the parent's tile walk {ms(t_old)}, "
-              f"{ms(t_old2)}; this tree's split walk {ms(t_new)}, "
-              f"{ms(t_new2)} (in turns); rays differing {d[0]}; on {smi}")
+        t_new2 = kl.profiler_ms(mine, new_tag)
+        walk = ("split walk" if lab.split_walk(kind, res["stage"]) else
+                f"stream (a persistent grid of {res['grid']} blocks)")
+        ratio = ("" if None in (t_old, t_new)
+                 else f" ({t_old / t_new:.2f}x faster)")
+        print(f"[lab] parent {name}: the parent's kernel {ms(t_old)}, "
+              f"{ms(t_old2)}; this tree's {walk} {ms(t_new)}, "
+              f"{ms(t_new2)} (in turns){ratio}; rays differing {d[0]}; on "
+              f"{smi}")
         check(d[0] == 0, f"[lab] {name} differs from the parent's kernel on "
               f"{d[0]} rays")
+        out[name] = (t_old, t_new, d[0])
+    return out
 
 
 def phase_lab(smi, parent=None):
@@ -1891,17 +1930,18 @@ def phase_lab(smi, parent=None):
     (`lab_work`); the mm rows with torch.matmul's time; L5's and L6's rows
     against their L3 twins (LAB_TWINS: equal on every live ray; rays that
     differ off the live set are counted); the split walk's rows (L1, L2,
-    L3, L5) also with `lab_split_line` (device time per call as the sum of
-    its three kernels, beside one item per tile and LAB_TILE_WALK_MS; its
-    items), each bitwise equal to the same kernel with one item per tile
-    on every ray, live and dead, and its longest item shorter than the
-    longest tile's walk; each L5 row against L3 at the same G and one
-    block per SM, L5's occupancy (bitwise, timed); LAB_SAME_ROWS bitwise
-    on every ray; `lab_fold_lines` (L1 and L2 against L3); the split
-    walk's `kl.items_sweep` (1-4 groups per item and one item per tile);
-    the cs-sweep (K3 over five clusterings, equal); with `parent`,
+    L3, L5, L6, L4's loop stage) also with `lab_split_line` (device time
+    per call as the sum of its three kernels, beside one item per tile and
+    LAB_TILE_WALK_MS; its items), each bitwise equal to the same kernel
+    with one item per tile on every ray, live and dead, and its longest
+    item shorter than the longest tile's walk; L4's stream rows (full1,
+    mm) with their persistent grid; each L5 row against L3 at the same G
+    and one block per SM, L5's occupancy (bitwise, timed); LAB_SAME_ROWS
+    bitwise on every ray; `lab_fold_lines` (L1 and L2 against L3); the
+    split walk's `kl.items_sweep` (1-4 groups per item and one item per
+    tile); the cs-sweep (K3 over five clusterings, equal); with `parent`,
     `lab_parent_lines`. Returns the JSON entries of L1-L6 without their
-    launches."""
+    launches (L4's with its loop row `beside` its mm row)."""
     from skele_raytracer_tpu_torch.ops.cuda import lab
     from skele_raytracer_tpu_torch.tools import kernel_lab as kl
     from skele_raytracer_tpu_torch.tools import lab_probe, lab_v5
@@ -1977,8 +2017,7 @@ def phase_lab(smi, parent=None):
         fn = lambda: lab.lab_nearest_kernel(kind, b, sm_blocks=1, **kw)
         d = kl.differ(fn(), rows[name]["out"], b.live)
         one = kl.profiler_ms(fn, kl.kernel_tag(kind, kw))
-        fits = lab.blocks_per_sm(kind, kw["group_c"], kw.get("passes", 6),
-                                 b.cluster_size)
+        fits = lab.blocks_per_sm(kind, b.cluster_size, **kw)
         print(f"[lab] occupancy: {name} (L5, {rows[name]['blocks_per_sm']} "
               f"block/SM) {ms(rows[name]['dev_ms'])} against L3 at G "
               f"{kw['group_c']} and 1 block/SM {ms(one)} (L3 holds {fits}); "
@@ -1988,7 +2027,8 @@ def phase_lab(smi, parent=None):
     for name, same in LAB_SAME_ROWS.items():
         d = kl.differ(rows[name]["out"], rows[same]["out"], b.live)
         print(f"[lab] {name} against {same}: rays differing live {d[0]} "
-              f"dead {d[1]}")
+              f"dead {d[1]}; profiler {ms(rows[name]['dev_ms'])} against "
+              f"{ms(rows[same]['dev_ms'])}; on {smi}")
         check(d == (0, 0), f"[lab] {name} differs from {same} on {d} (live, "
               f"dead) rays")
     lab_fold_lines(b, rows, smi)
@@ -2002,7 +2042,9 @@ def phase_lab(smi, parent=None):
     print(f"[lab] the lab phase took {time.perf_counter() - t0:.1f} s wall "
           f"on {smi}")
     out = {}
-    for kind, (tpu, name) in LAB_JSON_ROWS.items():
+    dev_ms = lambda res: (res["dev_ms"] if res["dev_ms"] is not None
+                          else res["ms"])
+    for kind, (tpu, name, *beside) in LAB_JSON_ROWS.items():
         res = rows[name]
         mine = [r for r in rows.values() if r["kind"] == kind]
         lib = res.get("library_ms")
@@ -2010,10 +2052,14 @@ def phase_lab(smi, parent=None):
             name=kind, route="cuda",
             source="skele_raytracer_tpu_torch/csrc/culled_lab.cu",
             replaces=tpu, max_abs_err=max(r["plain_err"] for r in mine),
-            ms=res["dev_ms"] if res["dev_ms"] is not None else res["ms"],
-            plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
-            bound_by=res["bound"][1],
+            ms=dev_ms(res), plain_ms=res["plain_ms"],
+            bound_ms=res["bound"][0], bound_by=res["bound"][1],
             library_ms=None if lib is None else lib["float32"])
+        if beside:
+            out[kind]["beside"] = {n: dict(
+                ms=dev_ms(rows[n]), plain_ms=rows[n]["plain_ms"],
+                bound_ms=rows[n]["bound"][0], bound_by=rows[n]["bound"][1])
+                for n in beside}
     return out
 
 

@@ -7,7 +7,9 @@
 //   L1 lab_v6_kernel       tools/lab_v5.py::_v6_kernel (launch_v6)
 //   L2 lab_v5_kernel       tools/lab_v5.py::_v5_kernel (launch_v5)
 //   L3 lab_base_kernel     tools/kernel_lab.py::_lab_kernel (launch_lab)
-//   L4 lab_probe_kernel    tools/lab_probe.py::_probe_kernel (launch_probe)
+//   L4 lab_probe_stream_kernel (its full1 and mm stages; its loop stage
+//                          runs lab_base_kernel)
+//                          tools/lab_probe.py::_probe_kernel (launch_probe)
 //   L5 lab_flat_kernel     tools/kernel_lab.py::_flat_kernel (launch_flat)
 //   L6 lab_presplit_kernel tools/kernel_lab.py::_presplit_kernel
 //                          (launch_presplit)
@@ -30,19 +32,28 @@
 // unconditional group with or without the epilogue: wrong on purpose,
 // timing only). None changes an output bit except L4's stages.
 //
-// Design. L4 and L6: one block of 256 threads per tile, which walks the
-// tile's groups in order. L1, L2, L3 and L5 (the split walk): a tile's walk
-// is cut into work items of at most item_groups groups (lab::item_at; every
-// tile's full items first, then the shorter last ones), which a persistent
-// grid of blocks (blocks per SM times the SMs) takes from an atomic
-// counter, so that no long tile runs alone at the end of a launch; each
-// item is walked as a tile is (the settle test from its own bests; L1's and
-// L2's split control path: a tile with counts <= group_c is one item of one
-// group, with no settle test and no barrier after it), and each ray's best
-// is merged into a 64-bit key (lab::best_key: t's bits, then the index)
-// with atomicMin: exact, and the same in any order of the items. Three
-// kernels per call: lab_split_init (the keys, the items' prefix sums, the
-// counter and the root box), the walk, lab_split_unpack.
+// Design. Every walk of a shortlist (L1, L2, L3, L5, L6 and L4's loop
+// stage) takes the split walk: a tile's walk is cut into work items of at
+// most item_groups groups (lab::item_at; every tile's full items first,
+// then the shorter last ones), which a persistent grid of blocks (blocks
+// per SM times the SMs) takes from an atomic counter, so that no long tile
+// runs alone at the end of a launch; each item is walked by one block of
+// 256 threads (a tile's rays) as a tile would be (the settle test from its
+// own bests; L1's and L2's split control path: a tile with counts <=
+// group_c is one item of one group, with no settle test and no barrier
+// after it), and each ray's best is merged into a 64-bit key
+// (lab::best_key: t's bits, then the index) with atomicMin: exact, and the
+// same in any order of the items. Three kernels per call: lab_split_init
+// (the keys, the items' prefix sums, the counter and the root box), the
+// walk, lab_split_unpack. L4's full1 and mm stages have no walk to split:
+// one unconditional group per tile, whose value (mm: a minimum of sums that
+// may be negative or NaN) no key could order. They stream the tiles
+// through a persistent grid (lab_stream: block b takes tiles b, b + grid,
+// ...; lab::stream_tile), the ring holding the block's next tile's group
+// in flight while the current one's product runs, no root box, and each
+// ray's answer written once, straight to the outputs: one kernel per call;
+// at passes = 3 each block splits the landed group's constants in place,
+// once, into L6's words and reads L6's fragments.
 // A group's cluster blocks (rows x 4 planes x cs floats, plus the aux
 // rows) go into one of two shared-memory stages through the bulk
 // asynchronous copy unit
@@ -81,9 +92,9 @@
 // columns) times the epilogue on the FP32 cores (a division and ~15
 // operations per pair), and at passes = 6 the 34 product operations too;
 // at passes = 3 the product is 3 x 4 MMAs per 16 x 8 pairs (tensor rate)
-// plus the split of the constants per warp. Device memory is small (44 B
-// per ray, the shortlist tables, the clusters' blocks once per group from
-// L2).
+// plus the split of the constants per warp (L4's stream: once per block).
+// Device memory is small (44 B per ray, the shortlist tables, the
+// clusters' blocks once per group from L2).
 //
 // Built with -fmad=false so that every operation rounds as in the plain
 // version.
@@ -98,7 +109,7 @@
 
 namespace {
 
-constexpr int kThreads = lab::TILE;  // one block per tile
+constexpr int kThreads = lab::TILE;  // a block holds a tile's rays
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 4;  // floats after each staged row of 4 cs floats
 constexpr int kFeat = 10;
@@ -333,155 +344,7 @@ __device__ __forceinline__ void mma_group(const float* st,
   quad_merge<4>(tb, ib, mm_stage);
 }
 
-// ---- the tile ------------------------------------------------------------
-
-// L4, L6: block `blockIdx.x` walks tile blockIdx.x whole and writes its
-// rays' answers. The same steps as the split walk's thread_rows, load_rays
-// and walk_groups below, written out as before it, so that these two
-// kernels compile to the instructions they had (calls of the helpers move
-// the register allocation); `once` on `a.split` is L1's and L2's split
-// control path from before they took the split walk: L4 and L6 never set
-// split.
-template <int PASSES, int G, int L>
-__device__ __forceinline__ void lab_tile(
-    const LabArgs& a, const float* __restrict__ feats,
-    const int32_t* __restrict__ order, const int32_t* __restrict__ counts,
-    const float* __restrict__ ent, const float* __restrict__ lo,
-    const float* __restrict__ hi, const float* __restrict__ K,
-    const float* __restrict__ aux, float* __restrict__ out_t,
-    int32_t* __restrict__ out_i) {
-  extern __shared__ float4 smem4[];
-  __shared__ uint64_t s_bar[2];
-  __shared__ float s_red[2][kWarps];
-  __shared__ float s_root[6];
-  constexpr int NR = PASSES == 3 ? 4 : 1;  // rays a thread keeps
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const size_t base = (size_t)tile * lab::TILE;
-  const int lane = tid % 32, warp = tid / 32;
-  const int n = counts[tile];
-  const bool once = a.stage != lab::kLoop || (a.split && n <= G);
-  const int groups =
-      once ? ((a.stage != lab::kLoop || n > 0) ? 1 : 0) : (n + G - 1) / G;
-
-  // the block's rows of the tile that this thread holds and writes
-  int ray[NR];
-#pragma unroll
-  for (int k = 0; k < NR; ++k)
-    ray[k] = PASSES == 3
-                 ? 32 * warp + 16 * (k >> 1) + (lane >> 2) + 8 * (k & 1)
-                 : tid;
-  const bool writer = PASSES == 3 ? (lane & 3) == 0 : true;
-  float tb[NR];
-  int32_t ib[NR];
-#pragma unroll
-  for (int k = 0; k < NR; ++k) {
-    tb[k] = mm::BIG;
-    ib[k] = mm::BIG_I;
-  }
-  if (groups == 0) {  // a tile that enters no cluster (split path): misses
-    if (writer)
-#pragma unroll
-      for (int k = 0; k < NR; ++k) {
-        out_t[base + ray[k]] = tb[k];
-        out_i[base + ray[k]] = ib[k];
-      }
-    return;
-  }
-
-  constexpr int S = stages_of(L, G);
-  float* stage_buf = reinterpret_cast<float*>(smem4);
-  cw::Ring ring{stage_buf, s_bar, S == 2 ? G * cluster_floats(a.cs, L) : 0};
-  ring.init();
-  if (tid < 3) {
-    float m = lo[tid];
-    for (int c = 1; c < a.C; ++c) m = lab::min_nan(m, lo[c * 3 + tid]);
-    s_root[tid] = m;
-  } else if (tid < 6) {
-    float m = hi[tid - 3];
-    for (int c = 1; c < a.C; ++c) m = lab::max_nan(m, hi[c * 3 + tid - 3]);
-    s_root[tid] = m;
-  }
-  __syncthreads();  // barriers and root box
-
-  float texit[NR];
-  float f[kFeat];  // passes = 6: the thread's ray
-#pragma unroll
-  for (int k = 0; k < NR; ++k) {
-    float fr[kFeat];
-#pragma unroll
-    for (int c = 0; c < kFeat; ++c) fr[c] = feats[(base + ray[k]) * kFeat + c];
-    texit[k] = lab::root_exit(fr, s_root, s_root + 3);
-    if (PASSES == 6)
-#pragma unroll
-      for (int c = 0; c < kFeat; ++c) f[c] = fr[c];
-  }
-  // passes = 3: A fragments of the warp's two 16-ray tiles, hi and lo:
-  // register r holds row (lane / 4) + 8 (r & 1), features 2q + 8 (r >> 1)
-  // and the next (0 past the 10th)
-  uint32_t ahi[2][4], alo[2][4];
-  if (PASSES == 3) {
-    const int q = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const size_t row = base + 32 * warp + 16 * mt + (lane >> 2) +
-                           8 * (r & 1);
-        const int c0 = 2 * q + 8 * (r >> 1);
-        const float x0 = c0 < kFeat ? feats[row * kFeat + c0] : 0.0f;
-        const float x1 = c0 + 1 < kFeat ? feats[row * kFeat + c0 + 1] : 0.0f;
-        float h0, l0, h1, l1;
-        lab::split(x0, h0, l0);
-        lab::split(x1, h1, l1);
-        ahi[mt][r] = lab::pack2(h0, h1);
-        alo[mt][r] = lab::pack2(l0, l1);
-      }
-  }
-
-  const int32_t* order_row = order + (size_t)tile * a.C;
-  fetch_group<L>(ring, K, aux, order_row, 0, G, a);
-  if (S == 2 && groups > 1) fetch_group<L>(ring, K, aux, order_row, 1, G, a);
-  for (int p = 0; p < groups; ++p) {
-    const float* st = ring.wait();
-    if constexpr (PASSES == 3)
-      mma_group<G, L>(st, ahi, alo, a, tb, ib);
-    else
-      scalar_group<G, L>(st, f, a, tb[0], ib[0]);
-    const bool last = p + 1 >= groups;
-    if (!once && !a.no_exit && !(a.gate && last)) {
-      // the settle bound: the tile's largest min(best t, root exit)
-      float v = lab::min_nan(tb[0], texit[0]);
-#pragma unroll
-      for (int k = 1; k < NR; ++k)
-        v = lab::max_nan(v, lab::min_nan(tb[k], texit[k]));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = lab::max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) s_red[p & 1][warp] = v;
-      __syncthreads();  // also: every thread is done with this stage
-      float settle = s_red[p & 1][0];
-      for (int w = 1; w < kWarps; ++w)
-        settle = lab::max_nan(settle, s_red[p & 1][w]);
-      const int nxt = min((p + 1) * G, a.C);
-      if (ent[(size_t)tile * (a.C + 1) + nxt] > settle) break;
-    } else if (!last) {
-      __syncthreads();  // every thread is done with this stage
-    }
-    if (last) break;
-    if (p + S < groups) fetch_group<L>(ring, K, aux, order_row, p + S, G, a);
-  }
-  ring.drain();
-  if (writer)
-#pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      out_t[base + ray[k]] = tb[k];
-      out_i[base + ray[k]] = ib[k];
-    }
-}
-
-
-// ---- the split walk (L1, L2, L3, L5) ------------------------------------
+// ---- the split walk (L1, L2, L3, L5, L6, L4's loop) ----------------------
 
 // The rows of its tile that a thread holds: passes = 3 four, rays
 // (lane / 4) + 8 k' of its warp's two 16-ray A tiles; passes = 6 its own.
@@ -495,12 +358,13 @@ __device__ __forceinline__ void thread_rows(int (&ray)[NR]) {
                  : (int)threadIdx.x;
 }
 
-// The thread's rays of the tile at row `base`: each one's exit from the
-// root box [root_lo, root_hi] (`texit`); passes = 6 its ray's features
-// (`f`); passes = 3 the A fragments of the warp's two 16-ray tiles, hi and
-// lo: register r holds row (lane / 4) + 8 (r & 1), features 2q + 8 (r >> 1)
-// and the next (0 past the 10th).
-template <int PASSES, int NR>
+// The thread's rays of the tile at row `base`: with EXIT, each one's exit
+// from the root box [root_lo, root_hi] (`texit`; without, texit and the
+// box are not read); passes = 6 its ray's features (`f`); passes = 3 the A
+// fragments of the warp's two 16-ray tiles, hi and lo: register r holds
+// row (lane / 4) + 8 (r & 1), features 2q + 8 (r >> 1) and the next (0
+// past the 10th).
+template <int PASSES, int NR, bool EXIT = true>
 __device__ __forceinline__ void load_rays(
     const float* __restrict__ feats, size_t base, const int (&ray)[NR],
     const float* root_lo, const float* root_hi, float (&texit)[NR],
@@ -511,7 +375,7 @@ __device__ __forceinline__ void load_rays(
     float fr[kFeat];
 #pragma unroll
     for (int c = 0; c < kFeat; ++c) fr[c] = feats[(base + ray[k]) * kFeat + c];
-    texit[k] = lab::root_exit(fr, root_lo, root_hi);
+    if constexpr (EXIT) texit[k] = lab::root_exit(fr, root_lo, root_hi);
     if (PASSES == 6)
 #pragma unroll
       for (int c = 0; c < kFeat; ++c) f[c] = fr[c];
@@ -603,9 +467,9 @@ struct SplitWork {
 };
 
 // A persistent block: takes work items (a tile and a range of its groups)
-// from the counter until none is left, walks each as lab_tile walks a
-// tile (the settle test from the item's own bests: a best can only lower
-// the bound, so an item stops only where the whole walk would), and
+// from the counter until none is left, walks each as the whole tile's walk
+// would go (the settle test from the item's own bests: a best can only
+// lower the bound, so an item stops only where the whole walk would), and
 // merges each ray's best into its key with a 64-bit atomicMin, exact and
 // independent of the order of the items.
 template <int PASSES, int G, int L>
@@ -676,8 +540,9 @@ __device__ __forceinline__ void lab_items(
 }
 
 // The split walk's first kernel: every key the miss's; block 0 also the
-// root box (as lab_tile scans it), the counter and the items' prefix sums
-// over the tiles (each thread a run of tiles, a scan over the threads).
+// root box (the union of the cluster boxes), the counter and the items'
+// prefix sums over the tiles (each thread a run of tiles, a scan over the
+// threads).
 __global__ void __launch_bounds__(kThreads)
     lab_split_init(int T, int C, int G, const int32_t* __restrict__ counts,
                    const float* __restrict__ lo,
@@ -743,20 +608,112 @@ __global__ void __launch_bounds__(kThreads)
     lab::unpack_key(keys[i], out_t[i], out_i[i]);
 }
 
-#define LAB_ARGS                                                          \
-  LabArgs a, const float* __restrict__ feats,                             \
-      const int32_t* __restrict__ order, const int32_t* __restrict__ counts, \
-      const float* __restrict__ ent, const float* __restrict__ lo,        \
-      const float* __restrict__ hi, const float* __restrict__ K,          \
-      const float* __restrict__ aux, float* __restrict__ out_t,           \
-      int32_t* __restrict__ out_i
-#define LAB_PASS a, feats, order, counts, ent, lo, hi, K, aux, out_t, out_i
+// ---- one group per tile (L4's full1 and mm stages) -----------------------
+
+// passes = 3: every constant of the landed group (its clusters' 9 rows of
+// 4 cs floats; not the pads or the aux rows) rewritten in place as L6's
+// word (lab::presplit_word), so that each value is split once per block
+// where mma_group<G, kKc> splits it once per warp; the caller's barrier
+// publishes the words. lab::hi_pair and lo_pair of the words are L3's
+// fragments bit for bit (lab_math_host.cpp lab_fragments_host). Each
+// thread's proxy fence orders its writes before the bulk copy that later
+// refills the stage (fetch_group, after a block barrier).
+template <int G>
+__device__ __forceinline__ void split_in_place(float* st, int cs) {
+  const int row4 = lab::PLANES * cs / 4;  // float4s of a row
+  const int srs = lab::PLANES * cs + kPad;
+  const int cl = cluster_floats(cs, kKc);
+  for (int i = threadIdx.x; i < G * lab::ROWS_KC * row4; i += kThreads) {
+    const int r = i / row4;  // cluster r / 9, row r % 9
+    float4* p = reinterpret_cast<float4*>(st + (r / lab::ROWS_KC) * cl +
+                                          (r % lab::ROWS_KC) * srs) +
+                i % row4;
+    float4 v = *p;
+    v.x = lab::from_bits(lab::presplit_word(v.x));
+    v.y = lab::from_bits(lab::presplit_word(v.y));
+    v.z = lab::from_bits(lab::presplit_word(v.z));
+    v.w = lab::from_bits(lab::presplit_word(v.w));
+    *p = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// L4's full1 and mm stages (a.stage): group 0 of every tile's shortlist
+// (a tile whose shortlist is empty too, as the TPU kernel takes it), with
+// no loop, no settle test and no root box. Block b of the persistent grid
+// takes tiles lab::stream_tile(b, gridDim.x, k) in turn; the ring holds
+// the next tile's group in flight while the current one's product runs,
+// and each ray's answer goes straight to out_t, out_i (its one writer).
+template <int PASSES, int G>
+__device__ __forceinline__ void lab_stream(
+    const LabArgs& a, const float* __restrict__ feats,
+    const int32_t* __restrict__ order, const float* __restrict__ K,
+    const float* __restrict__ aux, float* __restrict__ out_t,
+    int32_t* __restrict__ out_i) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t s_bar[2];
+  constexpr int NR = PASSES == 3 ? 4 : 1;
+  const int b = blockIdx.x, grid = gridDim.x;
+  const int n = lab::stream_tiles(b, grid, a.n_tiles);
+  const auto order_row = [&](int k) {
+    return order + (size_t)lab::stream_tile(b, grid, k) * a.C;
+  };
+  int ray[NR];
+  thread_rows<PASSES>(ray);
+  const bool writer = PASSES == 3 ? ((threadIdx.x % 32) & 3) == 0 : true;
+  cw::Ring ring{reinterpret_cast<float*>(smem4), s_bar,
+                G * cluster_floats(a.cs, kKc)};
+  ring.init();
+  __syncthreads();  // the ring's barriers
+  for (int k = 0; k < n && k < 2; ++k)
+    fetch_group<kKc>(ring, K, aux, order_row(k), 0, G, a);
+  for (int k = 0; k < n; ++k) {
+    const size_t base = (size_t)lab::stream_tile(b, grid, k) * lab::TILE;
+    float tb[NR];
+    int32_t ib[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      tb[r] = mm::BIG;
+      ib[r] = mm::BIG_I;
+    }
+    float texit[NR];  // not computed: no settle test
+    float f[kFeat];
+    uint32_t ahi[2][4], alo[2][4];
+    load_rays<PASSES, NR, false>(feats, base, ray, nullptr, nullptr, texit, f,
+                                 ahi, alo);
+    float* st = const_cast<float*>(ring.wait());
+    if constexpr (PASSES == 6) {
+      scalar_group<G, kKc>(st, f, a, tb[0], ib[0]);
+    } else {
+      split_in_place<G>(st, a.cs);
+      __syncthreads();  // the words
+      mma_group<G, kPresplit>(st, ahi, alo, a, tb, ib);
+    }
+    if (writer)
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        out_t[base + ray[r]] = tb[r];
+        out_i[base + ray[r]] = ib[r];
+      }
+    if (k + 2 < n) {
+      __syncthreads();  // every thread is done with this stage
+      fetch_group<kKc>(ring, K, aux, order_row(k + 2), 0, G, a);
+    }
+  }
+}
+
 #define ITEM_ARGS                                                         \
   LabArgs a, const float* __restrict__ feats,                             \
       const int32_t* __restrict__ order, const int32_t* __restrict__ counts, \
       const float* __restrict__ ent, const float* __restrict__ K,         \
       const float* __restrict__ aux, SplitWork w
 #define ITEM_PASS a, feats, order, counts, ent, K, aux, w
+#define STREAM_ARGS                                                       \
+  LabArgs a, const float* __restrict__ feats,                             \
+      const int32_t* __restrict__ order, const float* __restrict__ K,     \
+      const float* __restrict__ aux, float* __restrict__ out_t,           \
+      int32_t* __restrict__ out_i
+#define STREAM_PASS a, feats, order, K, aux, out_t, out_i
 
 // L1: folded blocks, the split control path always, per_group; the split
 // walk.
@@ -777,10 +734,14 @@ __global__ void __launch_bounds__(kThreads) lab_base_kernel(ITEM_ARGS) {
   lab_items<PASSES, G, kKc>(ITEM_PASS);
 }
 
-// L4: unfolded blocks; the probe's stage.
+// L4 at its full1 and mm stages: unfolded blocks, one group per tile,
+// streamed (p3: the landed group split in place into L6's words). At its
+// loop stage L4 is L3's walk with gate_settle off, so it launches
+// lab_base_kernel (kernel_of).
 template <int PASSES, int G>
-__global__ void __launch_bounds__(kThreads) lab_probe_kernel(LAB_ARGS) {
-  lab_tile<PASSES, G, kKc>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads)
+    lab_probe_stream_kernel(STREAM_ARGS) {
+  lab_stream<PASSES, G>(STREAM_PASS);
 }
 
 // L5: unfolded blocks padded to 16 rows on the host (K = kcf); the split
@@ -790,27 +751,28 @@ __global__ void __launch_bounds__(kThreads) lab_flat_kernel(ITEM_ARGS) {
   lab_items<PASSES, G, kFlat>(ITEM_PASS);
 }
 
-// L6, bf16x3 only: unfolded blocks split on the host (K = the words).
+// L6, bf16x3 only: unfolded blocks split on the host (K = the words); the
+// split walk.
 template <int G>
-__global__ void __launch_bounds__(kThreads) lab_presplit_kernel(LAB_ARGS) {
-  lab_tile<3, G, kPresplit>(LAB_PASS);
+__global__ void __launch_bounds__(kThreads) lab_presplit_kernel(ITEM_ARGS) {
+  lab_items<3, G, kPresplit>(ITEM_PASS);
 }
 
-using TileFn = void (*)(LAB_ARGS);
 using ItemFn = void (*)(ITEM_ARGS);
+using StreamFn = void (*)(STREAM_ARGS);
 
-// A kind's kernel at (passes, G): the tile walk (L4, L6) or the split walk
-// (L1, L2, L3, L5); neither where the kind is not built so.
+// A kind's kernel at (passes, G, stage): the split walk, or L4's stream at
+// its full1 and mm stages; neither where the kind is not built so.
 struct Kernel {
-  TileFn tile = nullptr;
   ItemFn item = nullptr;
+  StreamFn stream = nullptr;
   const void* fn() const {
-    return tile != nullptr ? (const void*)tile : (const void*)item;
+    return item != nullptr ? (const void*)item : (const void*)stream;
   }
 };
 
 template <int PASSES, int G>
-Kernel kernel_of(int kind) {
+Kernel kernel_of(int kind, int stage) {
   Kernel k;
   switch (kind) {
     case 0:
@@ -822,35 +784,38 @@ Kernel kernel_of(int kind) {
     case 2:
       k.item = lab_base_kernel<PASSES, G>;
       break;
-    case 3:
-      k.tile = lab_probe_kernel<PASSES, G>;
+    case 3:  // the loop stage is L3's walk (gate off)
+      if (stage == lab::kLoop)
+        k.item = lab_base_kernel<PASSES, G>;
+      else
+        k.stream = lab_probe_stream_kernel<PASSES, G>;
       break;
     case 4:
       k.item = lab_flat_kernel<PASSES, G>;
       break;
     case 5:
-      if constexpr (PASSES == 3) k.tile = lab_presplit_kernel<G>;
+      if constexpr (PASSES == 3) k.item = lab_presplit_kernel<G>;
       break;
   }
   return k;
 }
 
 template <int PASSES>
-Kernel kernel_of(int kind, int G) {
+Kernel kernel_of(int kind, int G, int stage) {
   switch (G) {
     case 1:
-      return kernel_of<PASSES, 1>(kind);
+      return kernel_of<PASSES, 1>(kind, stage);
     case 2:
-      return kernel_of<PASSES, 2>(kind);
+      return kernel_of<PASSES, 2>(kind, stage);
     case 4:
-      return kernel_of<PASSES, 4>(kind);
+      return kernel_of<PASSES, 4>(kind, stage);
   }
   return Kernel{};
 }
 
-Kernel kernel_of(int kind, int passes, int G) {
-  return passes == 6 ? kernel_of<6>(kind, G)
-         : passes == 3 ? kernel_of<3>(kind, G)
+Kernel kernel_of(int kind, int passes, int G, int stage) {
+  return passes == 6 ? kernel_of<6>(kind, G, stage)
+         : passes == 3 ? kernel_of<3>(kind, G, stage)
                        : Kernel{};
 }
 
@@ -886,6 +851,30 @@ cudaError_t occupancy(const void* kern, size_t smem, int* blocks) {
   return e;
 }
 
+// The grid of a launch of `k` (as culled_lab launches it): the blocks one
+// SM holds (at most sm_blocks > 0) times the SMs, at most the stream's
+// tiles or the split walk's items there can be.
+cudaError_t launch_grid(const Kernel& k, size_t smem, int n_tiles, int C,
+                        int group_c, int item_groups, int sm_blocks,
+                        int* grid) {
+  int blocks = 0, dev = 0, sms = 0;
+  cudaError_t e = occupancy(k.fn(), smem, &blocks);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (sm_blocks > 0) blocks = std::min(blocks, sm_blocks);
+  const long long most =
+      k.stream != nullptr
+          ? (long long)n_tiles
+          : (long long)n_tiles *
+                ((lab::tile_groups(C, group_c) + item_groups - 1) /
+                 item_groups);
+  *grid = (int)std::max(
+      1LL, std::min((long long)std::max(blocks, 1) * sms, most));
+  return cudaSuccess;
+}
+
 // The split walk's scratch in `work` (culled_lab_workspace bytes): the
 // keys, then the int32 tables, then the root box.
 SplitWork split_work(void* work, int n_tiles, int item_groups) {
@@ -901,26 +890,42 @@ SplitWork split_work(void* work, int n_tiles, int item_groups) {
 
 }  // namespace
 
-// Bytes of the scratch buffer the split walk (L1, L2, L3, L5) takes for
-// n_tiles tiles (SplitWork); 8-byte aligned.
+// Bytes of the scratch buffer the split walk (every kind but L4 at its
+// full1 and mm stages) takes for n_tiles tiles (SplitWork); 8-byte aligned.
 extern "C" long long culled_lab_workspace(int n_tiles) {
   return 8LL * n_tiles * lab::TILE + 4LL * (2 * (n_tiles + 1) + 1 + 6);
 }
 
-// Blocks of lab kernel `kind` (as `culled_lab`) that one SM holds at once
-// at this launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
-// registers, shared memory), or minus a CUDA error. For L1, L2, L3 and L5
-// that of the split walk's kernel, whose persistent grid is this times the
-// SMs.
+// Blocks of lab kernel `kind` (as `culled_lab`, at its stage) that one SM
+// holds at once at this launch shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers, shared
+// memory), or minus a CUDA error: the blocks per SM of the kernel's
+// persistent grid.
 extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
-                                    int cs) {
-  const Kernel k = kernel_of(kind, passes, group_c);
+                                    int cs, int stage) {
+  const Kernel k = kernel_of(kind, passes, group_c, stage);
   if (k.fn() == nullptr || cs <= 0 || cs % 8 != 0)
     return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t e = occupancy(k.fn(), smem_bytes(kind, group_c, cs),
                                   &blocks);
   return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// The blocks of the grid that `culled_lab` launches with these arguments
+// (launch_grid: for the split walk its walk's grid), or minus a CUDA error.
+extern "C" int culled_lab_grid(int kind, int passes, int group_c,
+                               int n_tiles, int C, int cs, int stage,
+                               int item_groups, int sm_blocks) {
+  const Kernel k = kernel_of(kind, passes, group_c, stage);
+  if (k.fn() == nullptr || n_tiles <= 0 || C <= 0 || cs <= 0 ||
+      cs % 8 != 0 || (k.item != nullptr && item_groups < 1))
+    return -(int)cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e =
+      launch_grid(k, smem_bytes(kind, group_c, cs), n_tiles, C, group_c,
+                  item_groups, sm_blocks, &grid);
+  return e == cudaSuccess ? grid : -(int)e;
 }
 
 // Launches lab kernel `kind` (0 lab_v6, 1 lab_v5, 2 lab_base, 3 lab_probe,
@@ -930,11 +935,13 @@ extern "C" int culled_lab_occupancy(int kind, int passes, int group_c,
 // [n_tiles, C + 1], lo/hi [C, 3], K [C, rows, 4, cs] (kinds 0-1: k10, rows
 // 10; 2-3: kc, rows 9; 4: kcf, rows 16; 5: kc's words, rows 9), aux
 // [C, aux rows, cs] (kinds 0-1: org; else aux). Writes t [n_tiles 256]
-// (BIG = miss) and the original index (BIG_I = miss). Kinds 3 and 5: one
-// kernel, a block per tile. Kinds 0, 1, 2 and 4 (the split walk): three
-// kernels, lab_split_init, the walk on a persistent grid (blocks per SM
-// times the SMs, at most the items there can be; with sm_blocks > 0 at
-// most sm_blocks per SM, for measurement) taking items of at most
+// (BIG = miss) and the original index (BIG_I = miss). Both take a
+// persistent grid of blocks per SM times the SMs (with sm_blocks > 0 at
+// most sm_blocks per SM, for measurement; culled_lab_grid). Kind 3 at
+// stages full1 and mm (`stage` 1, 2): one kernel, lab_probe_stream_kernel,
+// at most one block per tile. Every
+// other kind and stage (the split walk): three kernels, lab_split_init,
+// the walk (at most the items there can be) taking items of at most
 // item_groups (>= 1) groups, and lab_split_unpack, with the scratch
 // `work` (culled_lab_workspace bytes) and t_clip >= 0. cs must be a
 // multiple of 8 and every table 16-byte aligned; anything else returns
@@ -952,35 +959,26 @@ extern "C" int culled_lab(int kind, int passes, int group_c, int n_tiles,
   if (n_tiles <= 0) return (int)cudaGetLastError();
   if (cs <= 0 || cs % 8 != 0 || C <= 0 || kind < 0 || kind > 5)
     return (int)cudaErrorInvalidValue;
-  const Kernel k = kernel_of(kind, passes, group_c);
+  const Kernel k = kernel_of(kind, passes, group_c, stage);
   if (k.fn() == nullptr) return (int)cudaErrorInvalidValue;
+  if (k.item != nullptr &&
+      (item_groups < 1 || work == nullptr || !(t_clip >= 0.0f)))
+    return (int)cudaErrorInvalidValue;
   const LabArgs a{n_tiles, C,     cs,        thin,  gate,
                   no_exit, split, per_group, stage, t_clip};
   const size_t smem = smem_bytes(kind, group_c, cs);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k.tile != nullptr) {
-    const cudaError_t e = allow_smem(k.fn(), smem);
-    if (e != cudaSuccess) return (int)e;
-    k.tile<<<n_tiles, kThreads, smem, s>>>(a, feats, order, counts, ent, lo,
-                                           hi, K, aux, out_t, out_i);
+  int grid = 0;
+  const cudaError_t e = launch_grid(k, smem, n_tiles, C, group_c,
+                                    item_groups, sm_blocks, &grid);
+  if (e != cudaSuccess) return (int)e;
+  if (k.stream != nullptr) {
+    k.stream<<<grid, kThreads, smem, s>>>(a, feats, order, K, aux, out_t,
+                                          out_i);
     return (int)cudaGetLastError();
   }
-  if (item_groups < 1 || work == nullptr || !(t_clip >= 0.0f))
-    return (int)cudaErrorInvalidValue;
-  int blocks = 0, dev = 0, sms = 0;
-  cudaError_t e = occupancy(k.fn(), smem, &blocks);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (sm_blocks > 0) blocks = std::min(blocks, sm_blocks);
   const SplitWork w = split_work(work, n_tiles, item_groups);
   const int R = n_tiles * lab::TILE;
-  const long long most =
-      (long long)n_tiles *
-      ((lab::tile_groups(C, group_c) + item_groups - 1) / item_groups);
-  const int grid = (int)std::max(
-      1LL, std::min((long long)std::max(blocks, 1) * sms, most));
   lab_split_init<<<std::min((R + 4 * kThreads - 1) / (4 * kThreads), 1024),
                    kThreads, 0, s>>>(n_tiles, C, group_c, counts, lo, hi, w);
   k.item<<<grid, kThreads, smem, s>>>(a, feats, order, counts, ent, K, aux,

@@ -40,9 +40,11 @@
 // `thin_epilogue`: u >= 0 <=> sign(u_num) == sign(det), by an XOR of sign
 // bits; zero-safe).
 //
-// L3 and L5 spread a tile's walk over many blocks: the work items (a tile
-// and a range of its groups; `item_at`) and the exact merge of their
-// answers (`best_key`, `unpack_key`, `min_key`) are here too.
+// Every walk of a shortlist spreads a tile's walk over many blocks: the
+// work items (a tile and a range of its groups; `item_at`) and the exact
+// merge of their answers (`best_key`, `unpack_key`, `min_key`) are here
+// too, and the tiles that each block of L4's one-group stream takes
+// (`stream_tiles`, `stream_tile`).
 //
 // Everything here is what culled_lab.cu calls; the host build
 // (lab_math_host.cpp) runs the same functions pair by pair for the CPU
@@ -256,7 +258,7 @@ MM_FN float root_exit(const float* f, const float* root_lo,
   return te;
 }
 
-// ---- the split walk (L3, L5) ----------------------------------------------
+// ---- the split walk --------------------------------------------------------
 
 // A ray's best (t, original index) as one 64-bit key, t's bits above the
 // index's. For t >= +0 that is not NaN and an index >= 0, keys order as
@@ -317,5 +319,15 @@ MM_FN Item item_at(int it, const int32_t* full_off, const int32_t* rest_off,
   }
   return r;
 }
+
+// ---- L4's one-group stream (its full1 and mm stages) -----------------------
+
+// A persistent grid of `grid` blocks over T tiles: block b takes tiles b,
+// b + grid, b + 2 grid, ... below T, `stream_tiles` of them, the k-th
+// `stream_tile`; so every tile is taken once, by one block.
+MM_FN int stream_tiles(int block, int grid, int T) {
+  return block < T ? (T - block + grid - 1) / grid : 0;
+}
+MM_FN int stream_tile(int block, int grid, int k) { return block + k * grid; }
 
 }  // namespace lab

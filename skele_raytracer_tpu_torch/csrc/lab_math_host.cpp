@@ -136,3 +136,17 @@ extern "C" int lab_items_host(int T, const int32_t* counts, int G, int L,
   delete[] rest_off;
   return n <= cap ? n : -1;
 }
+
+// L4's stream of tiles over a persistent grid of `grid` blocks: how many
+// times each of T tiles is taken (lab::stream_tiles, lab::stream_tile),
+// into taken [T]; returns the most tiles one block takes.
+extern "C" int lab_stream_host(int T, int grid, int32_t* taken) {
+  int most = 0;
+  for (int t = 0; t < T; ++t) taken[t] = 0;
+  for (int b = 0; b < grid; ++b) {
+    const int n = lab::stream_tiles(b, grid, T);
+    most = n > most ? n : most;
+    for (int k = 0; k < n; ++k) ++taken[lab::stream_tile(b, grid, k)];
+  }
+  return most;
+}

@@ -59,16 +59,24 @@ tile, from no hit, with the settle test from that range's own bests: the
 answer of one work item of the split walk below.
 
 `lab_nearest_kernel` launches csrc/culled_lab.cu on CUDA tensors and
-raises on anything else; `lab_nearest` picks by the batch's device. L4 and
-L6 walk a tile per block. L1, L2, L3 and L5 (SPLIT) take the split walk:
-each tile's groups cut into work items of at most `item_groups` groups
+raises on anything else; `lab_nearest` picks by the batch's device.
+`split_walk(kind, stage)` says how a call runs: the wrapper's scratch and
+the tools' profiler names (tools/kernel_lab.py `kernel_tag`) read it;
+`launch_grid` gives the grid a call launches. Every walk of a shortlist
+(L1, L2, L3, L5, L6 and L4's loop stage) takes the split walk: each
+tile's groups cut into work items of at most `item_groups` groups
 (`work_items`: every tile's full items, then the shorter last ones), taken
 by a persistent grid, each ray's best merged exactly by a 64-bit atomicMin
-of (t bits, index); three kernels per call (KERNELS_PER_CALL). L1's and
-L2's split control path makes a tile with counts <= group_c one item of one
-group with no settle test. For live rays the answer is the whole walk's
-(the settle test is conservative); a dead ray's equals it wherever the
-whole walk does not stop early.
+of (t bits, index); three kernels per call. L1's and L2's split control
+path makes a tile with counts <= group_c one item of one group with no
+settle test. For live rays the answer is the whole walk's (the settle test
+is conservative); a dead ray's equals it wherever the whole walk does not
+stop early. L4's full1 and mm stages (one group per tile, no walk) stream
+the tiles through a persistent grid of at most one block per tile, each
+ray's answer written once: one kernel per call; at p3 each block splits
+the landed group's constants in place once, into L6's words, and reads
+L6's fragments (the same bits as L3's split per warp). L4's loop stage
+launches L3's kernel, whose walk it is with gate_settle off.
 """
 
 from __future__ import annotations
@@ -110,15 +118,22 @@ DEFAULTS = dict(per_group=False, split_path=True, gate_settle=True,
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 PAD = 4  # floats after each staged row of 4 cs (csrc/culled_lab.cu kPad)
 
-# The kernels that take the split walk, its groups per work item by
-# default, and the CUDA kernels one wrapper call launches
-SPLIT = ("lab_v6", "lab_v5", "lab_base", "lab_flat")
+# The split walk's groups per work item by default
 ITEM_GROUPS = 2
-KERNELS_PER_CALL = {k: 3 if k in SPLIT else 1 for k in KERNELS}
 
 # Calls of each kernel's wrapper that launched it, counted where the
-# wrapper launches it (KERNELS_PER_CALL kernels each).
+# wrapper launches it (three CUDA kernels each on the split walk, else one).
 LAUNCHES = {k: 0 for k in KERNELS}
+
+
+def split_walk(kind: str, stage: str = DEFAULTS["stage"]) -> bool:
+    """Whether a call of `kind` at `stage` (L4's only; its default that
+    of a call) takes the split walk, three CUDA kernels: every walk of a
+    shortlist does; L4's full1 and mm stages (one group per tile) stream
+    their tiles instead, one kernel."""
+    if kind not in KERNELS:
+        raise ValueError(f"lab kernel: one of {KERNELS}, got {kind!r}")
+    return kind != "lab_probe" or stage == "loop"
 
 
 @dataclass
@@ -489,24 +504,29 @@ _lib = None
 
 
 def bind(lib):
-    """Declares `culled_lab` of a loaded library."""
+    """Declares `culled_lab` of a loaded library (and the scratch size
+    that the wrapper reads from it)."""
     lib.culled_lab.argtypes = ([ctypes.c_int] * 14 + [ctypes.c_float]
                                + [ctypes.c_void_p] * 12)
     lib.culled_lab.restype = ctypes.c_int
     lib.culled_lab_workspace.argtypes = [ctypes.c_int]
     lib.culled_lab_workspace.restype = ctypes.c_longlong
-    lib.culled_lab_occupancy.argtypes = [ctypes.c_int] * 4
-    lib.culled_lab_occupancy.restype = ctypes.c_int
     return lib
 
 
 def build_kernel():
-    """Build (if needed) and load the lab's CUDA library."""
+    """Build (if needed) and load the lab's CUDA library, with its launch
+    queries (`blocks_per_sm`, `launch_grid`)."""
     global _lib
     if _lib is None:
         from skele_raytracer_tpu_torch.ops.cuda._build import load_cuda
 
-        _lib = bind(load_cuda("culled_lab"))
+        lib = bind(load_cuda("culled_lab"))
+        lib.culled_lab_occupancy.argtypes = [ctypes.c_int] * 5
+        lib.culled_lab_occupancy.restype = ctypes.c_int
+        lib.culled_lab_grid.argtypes = [ctypes.c_int] * 9
+        lib.culled_lab_grid.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 
@@ -536,16 +556,37 @@ def launch_shape(kind: str, group_c: int, cs: int) -> int:
     return smem
 
 
-def blocks_per_sm(kind: str, group_c: int, passes: int, cs: int) -> int:
-    """Blocks of kernel `kind` one SM of the current card holds at once at
-    this launch shape (its registers and `launch_shape`'s shared memory);
-    for SPLIT kernels also the blocks of their persistent grid per SM."""
+def blocks_per_sm(kind: str, cs: int, *, group_c: int = 2, passes: int = 6,
+                  **switches) -> int:
+    """Blocks of kernel `kind` (at `switches`' stage) one SM of the current
+    card holds at once at this launch shape (its registers and
+    `launch_shape`'s shared memory): the blocks of its persistent grid per
+    SM."""
+    fl = _flags(kind, switches)
     _check_shape(kind, group_c, passes)
     launch_shape(kind, group_c, cs)
-    n = build_kernel().culled_lab_occupancy(KERNELS.index(kind), passes,
-                                            group_c, cs)
+    n = build_kernel().culled_lab_occupancy(
+        KERNELS.index(kind), passes, group_c, cs, STAGES.index(fl["stage"]))
     if n < 0:
         raise RuntimeError(f"{kind} occupancy query failed: CUDA error {-n}")
+    return n
+
+
+def launch_grid(kind: str, b: LabBatch, *, group_c: int = 2,
+                passes: int = 6, item_groups: Optional[int] = None,
+                sm_blocks: int = 0, **switches) -> int:
+    """Blocks of the persistent grid that `lab_nearest_kernel` launches
+    with these arguments on the current card (the split walk: its walk's
+    grid), as csrc/culled_lab.cu computes it for the launch."""
+    fl = _flags(kind, switches)
+    _check_shape(kind, group_c, passes)
+    launch_shape(kind, group_c, b.cluster_size)
+    n = build_kernel().culled_lab_grid(
+        KERNELS.index(kind), passes, group_c, b.n_tiles, b.n_clusters,
+        b.cluster_size, STAGES.index(fl["stage"]),
+        ITEM_GROUPS if item_groups is None else item_groups, sm_blocks)
+    if n < 0:
+        raise RuntimeError(f"{kind} grid query failed: CUDA error {-n}")
     return n
 
 
@@ -553,15 +594,17 @@ def lab_nearest_kernel(kind: str, b: LabBatch, *, group_c: int = 2,
                        passes: int = 6, item_groups: Optional[int] = None,
                        sm_blocks: int = 0, **switches):
     """Lab kernel `kind` on CUDA tensors: (t, index) as
-    `lab_nearest_torch`; counted in LAUNCHES[kind]. SPLIT kernels cut the
-    walk into items of at most `item_groups` groups (ITEM_GROUPS by
-    default) and run as many blocks per SM as fit, or at most `sm_blocks`
-    (> 0); other values than the defaults are for measurement and tests."""
+    `lab_nearest_torch`; counted in LAUNCHES[kind]. Its persistent grid
+    runs as many blocks per SM as fit, or at most `sm_blocks` (> 0); the
+    split walk (`split_walk`) cuts the walk into items of at most
+    `item_groups` groups (ITEM_GROUPS by default). Other values than the
+    defaults are for measurement and tests."""
     fl = _flags(kind, switches)
     _check_shape(kind, group_c, passes)
+    split = split_walk(kind, fl["stage"])
     if item_groups is None:
         item_groups = ITEM_GROUPS
-    if kind in SPLIT and item_groups < 1:
+    if split and item_groups < 1:
         raise ValueError(f"item_groups: at least 1, got {item_groups}")
     dev = b.feats.device
     if dev.type != "cuda":
@@ -595,7 +638,7 @@ def lab_nearest_kernel(kind: str, b: LabBatch, *, group_c: int = 2,
     t = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     work = (torch.empty(lib.culled_lab_workspace(T), dtype=torch.uint8,
-                        device=dev) if kind in SPLIT else None)
+                        device=dev) if split else None)
     args = (KERNELS.index(kind), passes, group_c, T, C, cs, int(fl["thin"]),
             int(fl["gate"]), int(fl["no_exit"]), int(fl["split"]),
             int(fl["per_group"]), STAGES.index(fl["stage"]), item_groups,

@@ -17,8 +17,8 @@ Each row prints its device time per call, as the slope of 8 against 40
 back-to-back calls under CUDA events (the least of 3 each; the slope
 cancels the launch overhead, as the TPU lab's slope over in-program
 repetitions cancelled its dispatch floor) beside profiler device time per
-call (the sum of every kernel the call launches: L3's and L5's split walk
-launches three), and `[OK]` or `MISMATCH t:n idx:n` against the port's
+call (the sum of every kernel the call launches: the split walk launches
+three), and `[OK]` or `MISMATCH t:n idx:n` against the port's
 production K3 (`culled.culled_nearest_kernel` on the same sorted batch), over the
 batch's live rays; bf16x3 rows (p3) also say whether they stay inside
 their class against K3 (`p3_fp32_ok`: hit flags agree on 99.9% of the
@@ -37,8 +37,8 @@ K3 itself.
 `cs-sweep` runs K3 at cluster sizes 256, 128 and 64 with tiles of 256 and
 128 rays (the shortlists' mean length), unsorts its answers and holds
 them against the first clustering's. `items-sweep` times the split walk's
-rows (L1, L2, L3, L5) at 1-4 groups per work item and at one item per tile
-(`items_sweep`). `--device cpu` runs the plain
+rows (L1, L2, L3, L5, L6, L4's loop) at 1-4 groups per work item and at
+one item per tile (`items_sweep`). `--device cpu` runs the plain
 versions (ops/cuda/lab.py) and K3's, with no timing; `--samples` cuts the
 batch (a multiple of 16).
 """
@@ -477,15 +477,19 @@ def cuda_ms(fn) -> float:
 SPLIT_KERNELS = ("lab_split_init", "lab_split_unpack")
 
 
-def kernel_tag(kind: str, kw: dict):
-    """The profiler names of the kernels one call of a row launches: its
-    kernel instance (L6's has no passes), and for the split walk (L1, L2,
-    L3, L5) SPLIT_KERNELS too."""
-    g = kw.get("group_c", 2)
+def kernel_tag(kind: str, kw: dict) -> tuple:
+    """The profiler names of the kernels one call of a row launches, one
+    each: on the split walk (`lab.split_walk`) its walk's instance (L6's
+    has no passes; L4's loop stage launches L3's kernel) and
+    SPLIT_KERNELS; at L4's full1 and mm stages its stream's instance."""
+    g, p = kw.get("group_c", 2), kw.get("passes", 6)
+    if not lab.split_walk(kind, kw.get("stage", lab.DEFAULTS["stage"])):
+        return (f"lab_probe_stream_kernel<{p}, {g}>",)
     if kind == "lab_presplit":
-        return f"{kind}_kernel<{g}>"
-    tag = f"{kind}_kernel<{kw.get('passes', 6)}, {g}>"
-    return (tag, *SPLIT_KERNELS) if kind in lab.SPLIT else tag
+        tag = f"{kind}_kernel<{g}>"
+    else:
+        tag = f"{'lab_base' if kind == 'lab_probe' else kind}_kernel<{p}, {g}>"
+    return (tag, *SPLIT_KERNELS)
 
 
 def differ(out, ref, live) -> tuple:
@@ -518,17 +522,18 @@ def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
     (bitwise at passes 6, `p3_plain_ok` at 3; the probe's full1 and mm
     stages too), with the plain version's time and the groups each tile
     walked; with `timing`, device ms per call (`slope_ms`,
-    `profiler_ms`: the sum of the call's kernels) and the blocks an SM
-    holds at once (`blocks_per_sm`). For the split walk (lab.SPLIT) on the
-    card also its items (`split_stats`) and the same kernel with one item
-    per tile (`whole_tiles`): the rays that differ from it, live and dead
-    (`vs_tile`), and its time (`tile_ms`, `tile_dev_ms`)."""
+    `profiler_ms`: the sum of the call's kernels), the blocks an SM holds
+    at once (`blocks_per_sm`) and, for L4's stream, its persistent grid
+    (`grid`, `lab.launch_grid`). For the split walk (`lab.split_walk`) on
+    the card also its items (`split_stats`) and the same kernel with one
+    item per tile (`whole_tiles`): the rays that differ from it, live and
+    dead (`vs_tile`), and its time (`tile_ms`, `tile_dev_ms`)."""
     passes = kw.get("passes", 6)
     out = lab.lab_nearest(kind, b, **kw)
     res = dict(name=name, kind=kind, kw=kw, passes=passes, out=out,
                vs_k3=vs_k3(out, ref, b.live),
-               stage=kw.get("stage", "loop") if kind == "lab_probe"
-               else "loop")
+               stage=(kw.get("stage", lab.DEFAULTS["stage"])
+                      if kind == "lab_probe" else "loop"))
     mask = None if b.live is None else b.live > 0
     if passes == 3 and res["stage"] == "loop":
         res["k3_class"] = p3_fp32_class(b, out, ref, mask, bound)
@@ -551,7 +556,7 @@ def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
             lambda: lab.lab_nearest_torch(kind, b, **kw))
     if cuda and plain:
         res["vs_plain"] = differ(out, (t, i), b.live)
-    split = cuda and kind in lab.SPLIT
+    split = cuda and lab.split_walk(kind, res["stage"])
     if split:
         g = kw.get("group_c", 2)
         res.update(split_stats(b, g))
@@ -563,8 +568,9 @@ def evaluate(b, ref, name: str, kind: str, kw: dict, timing: bool = True,
         fn = lambda: lab.lab_nearest_kernel(kind, b, **kw)
         res["ms"] = slope_ms(fn)
         res["dev_ms"] = profiler_ms(fn, kernel_tag(kind, kw))
-        res["blocks_per_sm"] = lab.blocks_per_sm(
-            kind, kw.get("group_c", 2), passes, b.cluster_size)
+        res["blocks_per_sm"] = lab.blocks_per_sm(kind, b.cluster_size, **kw)
+        if not lab.split_walk(kind, res["stage"]):
+            res["grid"] = lab.launch_grid(kind, b, **kw)
         if split:
             fn = lambda: lab.lab_nearest_kernel(kind, b, **tile_kw)
             res["tile_ms"] = slope_ms(fn)
@@ -580,6 +586,8 @@ def format_row(res: dict) -> str:
         parts.append(f"{res['ms']:8.4f} ms device per call (slope 8 vs 40), "
                      f"profiler {ms(res['dev_ms'])} (all kernels), "
                      f"{res['blocks_per_sm']} blocks/SM")
+    if "grid" in res:
+        parts.append(f"stream: a persistent grid of {res['grid']} blocks")
     if "items" in res:
         parts.append(f"split walk: {res['items']} items of at most "
                      f"{lab.ITEM_GROUPS} groups (longest {res['longest']})")
@@ -684,21 +692,21 @@ def run_rows(rows: dict, names, device: str, samples: int, ref_label: str,
 
 
 # the split walk's rows that `items_sweep` times at each item length (L3,
-# L5 of ROWS; L1, L2 of lab_v5.ROWS)
+# L5, L6 of ROWS; L1, L2 of lab_v5.ROWS; L4's loop of lab_probe.ROWS)
 SWEEP_ROWS = ("lab_base", "lab_3pass", "flat_g2", "flat_g2_3p", "flat_g4_3p",
-              "v6_g2_p3 (per-plane)", "v5_g2_p3")
+              "presplit_g2", "v6_g2_p3 (per-plane)", "v5_g2_p3", "loop_g2_p3")
 
 
 def items_sweep(b: lab.LabBatch, emit=print, names=SWEEP_ROWS,
                 lengths=(1, 2, 3, 4)):
-    """The split walk's rows `names` (of ROWS and lab_v5.ROWS) on the card
-    at each item length of `lengths` (groups per item) and at one item per
-    tile (`whole_tiles`): each one's items, the longest, and its device ms
-    per call (profiler, summed over the call's kernels, and the slope);
-    each line goes to `emit`."""
-    from skele_raytracer_tpu_torch.tools import lab_v5
+    """The split walk's rows `names` (of ROWS, lab_v5.ROWS and
+    lab_probe.ROWS) on the card at each item length of `lengths` (groups
+    per item) and at one item per tile (`whole_tiles`): each one's items,
+    the longest, and its device ms per call (profiler, summed over the
+    call's kernels, and the slope); each line goes to `emit`."""
+    from skele_raytracer_tpu_torch.tools import lab_probe, lab_v5
 
-    rows = {**ROWS, **lab_v5.ROWS}
+    rows = {**ROWS, **lab_v5.ROWS, **lab_probe.ROWS}
     for name in names:
         kind, kw = rows[name]
         g = kw.get("group_c", 2)

@@ -3,12 +3,17 @@ counterpart of the JAX package's tools/lab_probe.py): L4 (`lab_probe`)
 splits a tile's cost into control (the loop and its exit), product and
 epilogue by timing reduced kernels that are wrong on purpose: `full1` runs
 one group with no loop, `mm` the product and a cheap minimum, `loop` the
-whole walk (equal to `lab_base`). The `mm` rows also print
-`torch.matmul`'s time for the same product, [R, 16] x [16, 4 cs group_c]
-in FP32 (TF32 off) and in bf16, as their library yardstick.
+whole walk (equal to `lab_base` with gate_settle off). The `loop` rows take
+the split walk, as `lab_base` does (three kernels per call, beside the same
+kernel at one item per tile); the `full1` and `mm` rows stream one group
+per tile through a persistent grid (one kernel per call). The `mm` rows
+also print `torch.matmul`'s time for the same product, [R, 16] x
+[16, 4 cs group_c] in FP32 (TF32 off) and in bf16, as their library
+yardstick.
 
     python -m skele_raytracer_tpu_torch.tools.lab_probe [row ...] \\
         [--device cpu] [--samples N]
+    python -m skele_raytracer_tpu_torch.tools.lab_probe loop_g2_p3 mm_g2_p3
 """
 
 import sys

@@ -6,8 +6,8 @@ one group take one straight group with no settle), the per-plane product
 (L1, `lab_v6`, with `per_group`) and group_c / passes, each row held
 against the production K3 on kernel_lab.py's dragon bounce batch.
 
-Both kernels take the split walk of kernel_lab.py's L3 and L5 (ops/cuda/
-lab.py SPLIT): each tile's groups cut into work items of at most
+Both kernels take the split walk of kernel_lab.py's L3 (ops/cuda/lab.py
+`split_walk`): each tile's groups cut into work items of at most
 lab.ITEM_GROUPS groups, taken by a persistent grid, each ray's best merged
 by a 64-bit atomicMin; the split control path makes a tile whose shortlist
 fits in one group one item of one group. So each row's time per call is the

@@ -21,7 +21,10 @@ Tolerances:
   relayout and split, and the g++ build of the fragment functions L6
   adds to csrc/lab_math.cuh against L3's split and pack.
 The CUDA kernels are held against their plain versions, K3 and L3 on the
-card (chip_smoke.py `[lab]`; here the `cuda` test skips).
+card (chip_smoke.py `[lab]`; here the `cuda` test skips), and with them L4
+`lab_probe`'s one-group stream (its full1 and mm stages;
+tests/test_torch_lab_split.py `check_stream_on_the_card`, which that file's
+JAX-free card test runs too) against its plain version.
 """
 
 import ctypes
@@ -37,6 +40,7 @@ from skele_raytracer_tpu_torch.ops.cuda import _build, lab
 from skele_raytracer_tpu_torch.tools import kernel_lab
 from skele_raytracer_tpu_torch.utils import roofline
 from tests.test_torch_lab import DRAGON_SAMPLES, j_kl, lab_case  # noqa: F401
+from tests.test_torch_lab_split import check_stream_on_the_card
 
 P = ctypes.c_void_p
 BIG = lab.BIG
@@ -233,3 +237,4 @@ def test_kernels_match_plain_on_the_card(lab_case):
             assert kernel_lab.p3_plain_ok(cls), (kind, kw, cls)
         if kw.get("group_c", 2) == 2:  # the same fragments as L3's
             assert _equal(got, base[kw["passes"]]), (kind, kw)
+    check_stream_on_the_card(b, bc)  # L4's full1 and mm

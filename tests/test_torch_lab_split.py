@@ -1,9 +1,12 @@
 """The split walk of the kernel lab's L1 `lab_v6`, L2 `lab_v5`, L3
-`lab_base` and L5 `lab_flat` (csrc/culled_lab.cu `lab_items`): a tile's
-walk cut into work items of a few groups each, walked by many blocks, and
-each ray's best merged by a 64-bit key (csrc/lab_math.cuh `best_key`,
-`min_key`, `item_at`); L1's and L2's split control path (a tile with counts
-<= group_c: one item of one group, no settle test).
+`lab_base`, L5 `lab_flat`, L6 `lab_presplit` and L4 `lab_probe` at its loop
+stage (csrc/culled_lab.cu `lab_items`): a tile's walk cut into work items
+of a few groups each, walked by many blocks, and each ray's best merged by
+a 64-bit key (csrc/lab_math.cuh `best_key`, `min_key`, `item_at`); L1's
+and L2's split control path (a tile with counts <= group_c: one item of
+one group, no settle test). L4's full1 and mm stages stream one group per
+tile through a persistent grid instead (`lab.split_walk`; the tiles each
+block takes: `stream_tiles`, `stream_tile`).
 
 Batches: tests/test_torch_lab.py's synthetic `lab_case` (512 rays in 2
 tiles of 256, a seeded 200-triangle mesh in 4 clusters of 64, 30% dead
@@ -21,9 +24,12 @@ All bitwise:
   and merged by the host build's keys, against the whole plain walk: on
   the live rays for every switch, on every ray with no_early_exit (the
   settle test is conservative for the live rays only), at group_c 1, 2
-  and 4, the three layouts (folded, unfolded, padded) and both products;
+  and 4, the four layouts (folded, unfolded, padded, host-split) and both
+  products (L6: bf16x3 only);
 * the host build's work items against `lab.work_items`: each tile's
-  groups covered once, no item longer than its bound.
+  groups covered once, no item longer than its bound;
+* the host build's stream of tiles: every tile taken once, for grids
+  smaller than, equal to and larger than the tile count.
 The CUDA kernels against their plain versions: the `cuda` test, which
 skips without a GPU (on the card: `python -m pytest --noconftest -o
 addopts= tests/test_torch_lab_split.py -q`; chip_smoke.py `[lab]` runs
@@ -43,7 +49,8 @@ from skele_raytracer_tpu_torch.tools import kernel_lab
 P = ctypes.c_void_p
 BIG, BIG_I = lab.BIG, lab.BIG_I
 ITEMS = (1, 2)  # item lengths the merge is built from, in groups
-# (kernel, switches) of the L1, L2, L3 and L5 rows' families
+# (kernel, switches) of the split walk's rows' families: L1, L2, L3, L5,
+# L6 and L4's loop stage
 SWITCHES = [("lab_base", dict(gate_settle=False)),
             ("lab_base", dict(gate_settle=True)),
             ("lab_base", dict(gate_settle=True, thin_epilogue=True)),
@@ -53,7 +60,18 @@ SWITCHES = [("lab_base", dict(gate_settle=False)),
             ("lab_v6", {}),
             ("lab_v6", dict(per_group=True)),
             ("lab_v5", dict(split_path=True)),
-            ("lab_v5", dict(split_path=False))]
+            ("lab_v5", dict(split_path=False)),
+            ("lab_presplit", {}),
+            ("lab_probe", dict(stage="loop"))]
+# (case, group_c, passes) of every family at every group size and product
+# it is built for (L6: bf16x3 only)
+SHAPES = [(case, g, p) for case in SWITCHES for g in lab.GROUPS
+          for p in (6, 3) if not (case[0] == "lab_presplit" and p == 6)]
+
+
+def _case_id(case):
+    kind, kw = case
+    return f"{kind}-" + "-".join(s for s, v in kw.items() if v)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -74,6 +92,8 @@ def host():
     lib.lab_items_host.argtypes = [ctypes.c_int, P, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, P]
     lib.lab_items_host.restype = ctypes.c_int
+    lib.lab_stream_host.argtypes = [ctypes.c_int, ctypes.c_int, P]
+    lib.lab_stream_host.restype = ctypes.c_int
     return lib
 
 
@@ -223,10 +243,8 @@ def test_merge_of_plain_answers_with_an_empty_tile(host, lab_case, stack,
 
 
 @pytest.mark.parametrize("batch", ["lab_case", "stack"])
-@pytest.mark.parametrize("passes", [6, 3])
-@pytest.mark.parametrize("group_c", lab.GROUPS)
-@pytest.mark.parametrize("case", SWITCHES, ids=[
-    f"{k}-" + "-".join(s for s, v in kw.items() if v) for k, kw in SWITCHES])
+@pytest.mark.parametrize("case,group_c,passes", SHAPES, ids=[
+    f"{_case_id(c)}-{g}-{p}" for c, g, p in SHAPES])
 def test_group_ranges_merge_to_the_whole_walk(host, lab_case, stack,
                                               batch, passes, group_c, case):
     kind, sw = case
@@ -308,9 +326,92 @@ def test_the_wrapper_refuses_an_empty_item(lab_case):
         lab.lab_nearest_kernel("lab_base", b, item_groups=0)
     with pytest.raises(ValueError, match="item_groups"):
         lab.work_items(b.counts, 2, 0)
-    split = ("lab_v6", "lab_v5", "lab_base", "lab_flat")
-    assert lab.KERNELS_PER_CALL == {k: 3 if k in split else 1
-                                    for k in lab.KERNELS}
+    # every walk of a shortlist takes the split walk's three kernels
+    assert all(len(kernel_lab.kernel_tag(k, dict(passes=3, stage="loop")))
+               == 3 for k in lab.KERNELS)
+
+
+def test_split_walk_by_kind_and_stage():
+    # the predicate, and the kernels one call launches (the profiler's
+    # names, one each): 3 on the split walk, 1 for L4's stream
+    tag = kernel_lab.kernel_tag
+    for kind in lab.KERNELS:
+        if kind != "lab_probe":
+            assert lab.split_walk(kind)
+            assert len(tag(kind, dict(passes=3))) == 3
+    assert lab.split_walk("lab_probe", "loop")
+    assert len(tag("lab_probe", dict(stage="loop"))) == 3
+    for stage in ("full1", "mm"):
+        assert not lab.split_walk("lab_probe", stage)
+        assert len(tag("lab_probe", dict(stage=stage))) == 1
+    # the probe's default stage is the TPU launcher's, full1, as a call's
+    assert not lab.split_walk("lab_probe")
+    with pytest.raises(ValueError, match="lab kernel"):
+        lab.split_walk("lab_nope")
+    split = kernel_lab.SPLIT_KERNELS
+    assert tag("lab_presplit", dict(group_c=2, passes=3)) == (
+        "lab_presplit_kernel<2>", *split)
+    # L4's loop stage launches L3's kernel
+    assert tag("lab_probe", dict(group_c=2, passes=3, stage="loop")) == (
+        "lab_base_kernel<3, 2>", *split)
+    assert tag("lab_base", dict(passes=6)) == ("lab_base_kernel<6, 2>", *split)
+    assert tag("lab_probe", dict(group_c=1, passes=6, stage="mm")) == (
+        "lab_probe_stream_kernel<6, 1>",)
+    assert tag("lab_probe", dict(passes=3)) == (
+        "lab_probe_stream_kernel<3, 2>",)
+
+
+@pytest.mark.parametrize("T", [1, 7, 512])
+def test_stream_takes_every_tile_once(host, T):
+    for grid in sorted({1, 3, max(T - 1, 1), T, T + 5, 264}):
+        taken = np.full(T, -1, np.int32)
+        most = host.lab_stream_host(T, grid, taken.ctypes.data)
+        np.testing.assert_array_equal(taken, np.ones(T, np.int32))
+        assert most == -(-T // grid), (T, grid)
+
+
+@pytest.mark.parametrize("passes", [6, 3])
+def test_probe_loop_is_l3_without_gate(lab_case, stack, passes):
+    # L4's loop stage launches L3's kernel with gate_settle off: their
+    # plain versions agree on every ray, live and dead
+    for b in (lab_case, stack):
+        for group_c in lab.GROUPS:
+            a = lab.lab_nearest_torch("lab_probe", b, group_c=group_c,
+                                      passes=passes, stage="loop")
+            c = lab.lab_nearest_torch("lab_base", b, group_c=group_c,
+                                      passes=passes, gate_settle=False)
+            assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1]), (
+                group_c)
+
+
+def check_stream_on_the_card(b, bc):
+    """L4's one-group stream (its full1 and mm stages, every G and product)
+    on the card tensors `bc` of batch b: one launch per call, against its
+    plain version (p6 bitwise, p3 `p3_plain_ok` at its stage)."""
+    for stage in ("full1", "mm"):
+        for group_c in lab.GROUPS:
+            for passes in (6, 3):
+                kw = dict(group_c=group_c, passes=passes, stage=stage)
+                before = lab.LAUNCHES["lab_probe"]
+                got = lab.lab_nearest_kernel("lab_probe", bc, **kw)
+                assert lab.LAUNCHES["lab_probe"] == before + 1
+                want = lab.lab_nearest_torch("lab_probe", b, **kw)
+                cpu = tuple(x.cpu() for x in got)
+                if passes == 6:
+                    assert torch.equal(cpu[0], want[0]), kw
+                    assert torch.equal(cpu[1], want[1]), kw
+                else:
+                    cls = kernel_lab.p3_class(cpu, want)
+                    assert kernel_lab.p3_plain_ok(cls, stage), (kw, cls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["lab_case", "stack"])
+def test_stream_kernels_match_plain_on_the_card(lab_case, stack, batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    b = _batch(batch, lab_case, stack)
+    check_stream_on_the_card(b, b.to("cuda"))
 
 
 @pytest.mark.cuda
@@ -321,27 +422,24 @@ def test_split_kernels_match_plain_on_the_card(lab_case, stack, batch):
     b = _batch(batch, lab_case, stack)
     bc = b.to("cuda")
     live = b.live > 0
-    for kind, sw in SWITCHES:
-        for group_c in lab.GROUPS:
-            for passes in (6, 3):
-                kw = dict(group_c=group_c, passes=passes, **sw)
-                want = lab.lab_nearest_torch(kind, b, **kw)
-                whole = kernel_lab.whole_tiles(b, group_c)
-                tile = lab.lab_nearest_kernel(kind, bc, item_groups=whole,
-                                              **kw)
-                for L, sm in ((1, 0), (2, 0), (2, 1), (whole, 0)):
-                    before = lab.LAUNCHES[kind]
-                    got = lab.lab_nearest_kernel(kind, bc, item_groups=L,
-                                                 sm_blocks=sm, **kw)
-                    assert lab.LAUNCHES[kind] == before + 1
-                    got = tuple(x.cpu() for x in got)
-                    # the items' merge is exact: the live rays' answers do
-                    # not depend on the item length
-                    assert torch.equal(got[0][live], tile[0].cpu()[live])
-                    assert torch.equal(got[1][live], tile[1].cpu()[live])
-                    if passes == 6:
-                        assert torch.equal(got[0][live], want[0][live])
-                        assert torch.equal(got[1][live], want[1][live])
-                    else:
-                        cls = kernel_lab.p3_class(got, want, live)
-                        assert kernel_lab.p3_plain_ok(cls), (kind, kw, cls)
+    for (kind, sw), group_c, passes in SHAPES:
+        kw = dict(group_c=group_c, passes=passes, **sw)
+        want = lab.lab_nearest_torch(kind, b, **kw)
+        whole = kernel_lab.whole_tiles(b, group_c)
+        tile = lab.lab_nearest_kernel(kind, bc, item_groups=whole, **kw)
+        for L, sm in ((1, 0), (2, 0), (2, 1), (whole, 0)):
+            before = lab.LAUNCHES[kind]
+            got = lab.lab_nearest_kernel(kind, bc, item_groups=L,
+                                         sm_blocks=sm, **kw)
+            assert lab.LAUNCHES[kind] == before + 1
+            got = tuple(x.cpu() for x in got)
+            # the items' merge is exact: the live rays' answers do not
+            # depend on the item length
+            assert torch.equal(got[0][live], tile[0].cpu()[live])
+            assert torch.equal(got[1][live], tile[1].cpu()[live])
+            if passes == 6:
+                assert torch.equal(got[0][live], want[0][live])
+                assert torch.equal(got[1][live], want[1][live])
+            else:
+                cls = kernel_lab.p3_class(got, want, live)
+                assert kernel_lab.p3_plain_ok(cls), (kind, kw, cls)
