@@ -1,0 +1,6 @@
+"""mesh_frame_ms: the window's wall time over the wavefront (mesh) frames it completed, in
+ms (host clock; each item ends in a synchronize, back to back)."""
+
+
+def read(run):
+    return 1e3 * run.window_s / run.items if run.items else None
