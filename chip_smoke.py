@@ -154,7 +154,8 @@ Phases, in order; any failure raises and exits nonzero:
    its state and preview.ppm), then resumed (one K1 launch per remaining
    band), byte-equal to a one-shot render; the bands' wall time beside
    one-shot `render`; `--profile DIR` on a test.scn Whitted run (256x192,
-   a subprocess), whose trace must name K3's and K4's kernels; `debug.checked_render` of
+   a subprocess), whose trace must name K3's and K4's kernels and the
+   program's stages (utils/profiling.py spans); `debug.checked_render` of
    test.scn 64x48 clean Whitted on the card.
 9. [parallel] (the card is the only one: NCCL and multi-GPU scaling are
    not measured here), each run with the launch counters set to 0 just
@@ -171,8 +172,8 @@ Phases, in order; any failure raises and exits nonzero:
    which is the overhead of sharding, not scaling.
 10. [example] examples/inverse_rendering_torch.py at its defaults (a
    process of its own): its PPMs, falling losses, its MAE.
-11. [roofline] `utils/roofline.analyze_trace` of phase 8's --profile
-   trace and `sol_summary` of K1's counted work at the 1080p headline.
+11. [roofline] `sol_summary` of K1's counted work at the 1080p
+   headline.
 12. a JSON line of the kernels (with each one's bound from counted
    operations and bytes: utils/roofline.py; the lab's L1-L6 with 0
    launches on the render paths), nvidia-smi's line, and the final line
@@ -182,9 +183,13 @@ With `--parent-csrc DIR` (an earlier commit's skele_raytracer_tpu_torch/
 csrc, e.g. `git archive` of it unpacked under build/), that tree's K1, K5,
 K7, K3/K4 and kernel lab are built too, held bitwise against this tree's
 (K1's r, g, b and records at both 1080p headlines, K5's t, index, u, v at
-its chunk, K7's outputs at dragon's chunk 37, the fused and split dragon
-frames, the lab's L1, L2, L4 and L6 rows on every ray) and timed in turns with
-them on the same inputs; `render` and a `train_step` at the 1080p
+its chunk, K3's and K4's outputs at dragon's waves, K7's at dragon's chunk
+37, the fused and split dragon frames, the lab's L1, L2, L4 and L6 rows on
+every ray) and timed in turns with them on the same inputs (K3, K4, K5
+and K7 by launch order in one trace: `device_turns_ms`);
+`[ptxas]` holds the registers of the instances of K3, K4 and K7 that run
+with the device counters off to that tree's (`walk_registers_against`);
+`render` and a `train_step` at the 1080p
 headlines run through each tree's K1 in turns, and the fused and split
 dragon frames through each tree's kernels; `[sass]` compares the
 kernel lab's instances that must not change (LAB_SAME_AS_PARENT: L1, L2,
@@ -572,10 +577,12 @@ class ParentKernels:
     gitignored build/), compiled with this tree's nvcc flags and bound
     through this tree's wrappers (the C signatures of `pathtrace_forward`,
     `triangle_nearest`, `fused_shade`, `culled_nearest`, `culled_occluded`
-    and `culled_lab` have not changed), so that old and new kernels are
-    timed in turns in one run. K6's entry took other operands before this
-    tree's `sphere_nearest_hits`: `k6_parent_entry` calls the parent's
-    `sphere_nearest` as its wrapper did. (K7 shares K5's per-pair
+    and `culled_lab` have not changed but for the device counters' row
+    that the last three now take after the stream, which a launcher built
+    before them ignores), so that old and new kernels are
+    timed in turns in one run. K6's entry took other operands before
+    `sphere_nearest_hits`: for a tree that lacks it, `k6_parent_entry`
+    calls the parent's `sphere_nearest` as its wrapper did. (K7 shares K5's per-pair
     epilogue, mesh_math.cuh `brute_t`, and K3, K4 and K7 the cluster walk,
     cluster_walk.cuh.)"""
 
@@ -596,11 +603,13 @@ class ParentKernels:
              self.paths[name], os.path.join(csrc, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for name in self.SOURCES}
+        self.ptxas = {}  # name -> ptxas_summary lines
         for name, proc in procs.items():
             _, err = proc.communicate(timeout=600)
             check(proc.returncode == 0,
                   f"parent {name}.cu build failed:\n{err}")
-            for line in ptxas_summary(err):
+            self.ptxas[name] = ptxas_summary(err)
+            for line in self.ptxas[name]:
                 print(f"[ptxas] parent {name}: {line}")
         pt, culled, k5, mk, lab = counted_modules()
         self.libs = {pt: pt.bind(ctypes.CDLL(self.paths["pathtrace"])),
@@ -717,17 +726,67 @@ def device_ms(fns, reps=10):
     return out
 
 
+def device_turns_ms(calls, base, reps=10):
+    """Mean device time (ms) per launch for each of `calls`, each of which
+    launches one kernel named `base` (with any template arguments: two
+    trees may name it alike or not), from one torch.profiler trace of
+    `reps` rounds of the calls in turns (forward, then backward through
+    the list), after a warm-up step: the trace's launches of `base` in the
+    order they started are the calls' in the order they ran. A trace that
+    holds another count is taken again, up to 3 times; then None, and a
+    `[profile]` line says so."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+    named = re.compile(rf"(?<!\w){re.escape(base)}(?!\w)").search
+    order = [k for rnd in range(reps) for k in (
+        range(len(calls)) if rnd % 2 == 0 else reversed(range(len(calls))))]
+
+    def warm():
+        for fn in calls:
+            fn()
+
+    def rounds():
+        for k in order:
+            calls[k]()
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for step in (warm, rounds):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        launches = sorted(
+            (ev.start_ns(), ev.duration_ns()) if hasattr(ev, "start_ns")
+            else (ev.start_us() * 1e3, ev.duration_us() * 1e3)
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == cuda and named(ev.name()))
+        if len(launches) == len(order):
+            sums = [0] * len(calls)
+            for k, (_, ns) in zip(order, launches):
+                sums[k] += ns
+            return [x / 1e6 / reps for x in sums]
+        print(f"[profile] trace {attempt + 1} of 3 held {len(launches)} "
+              f"launches of {base}, want {len(order)}")
+    return None
+
+
 def time_redesigned(name, label, n, smi, kernel, tag, plain, work, parent,
-                    mod, parent_tag, equal, lanes_for=None, lanes=None):
+                    mod, equal, lanes_for=None, lanes=None):
     """A redesigned kernel (K3, K4, K5 or K7) alone at one wave of n rays.
     `kernel(lanes)` launches it with that many lanes per ray (None: the
     launcher's choice), whose kernel is named `tag(lanes)`. Prints its
     device time per launch (`device_ms`) at each lane count of `lanes`
     (culled.LANES by default; `[tune]`) and, with `parent`, the parent
-    tree's kernel's (named `parent_tag`) on the same inputs in the same
-    turns (their outputs must agree: `equal(new, old)`; `parent_tag`
-    None: its kernel has this tree's name, so only its calls are timed);
-    the time of one wrapper call by CUDA events, in turns with the
+    tree's kernel's on the same inputs (their outputs must agree:
+    `equal(new, old)`), both in one trace by `device_turns_ms` (`[parent]`:
+    the two device times and their ratio); the time of one wrapper call
+    by CUDA events, in turns with the
     parent's; the plain version's; the bound and the shares of it.
     Returns (device ms at the launcher's choice, plain_ms, bound_ms,
     bound_by, the parent's device ms or None). `lanes_for`: the
@@ -743,12 +802,18 @@ def time_redesigned(name, label, n, smi, kernel, tag, plain, work, parent,
         check(equal(kernel(None), parent.call(mod, lambda: kernel(None))),
               f"{name} {label}: the parent tree's kernel disagrees")
         calls.append(lambda: parent.call(mod, lambda: kernel(None)))
-        if parent_tag is not None:  # a name of its own in the profiler
-            fns[parent_tag] = calls[-1]
     dev = device_ms(fns)
     call_ms = turns_ms(calls)
     ms = dev[tag(lanes_for(n))]
-    old_ms = dev.get(parent_tag)
+    old_ms = None
+    if parent is not None:
+        turns = device_turns_ms(calls, tag(lanes_for(n)).split("<")[0])
+        if turns is not None:
+            this_ms, old_ms = turns
+            print(f"[parent] {name} {label}: kernel {this_ms:.4f} ms of "
+                  f"device time per launch, the parent tree's {old_ms:.4f} "
+                  f"ms, {this_ms / old_ms:.4f}x (profiler, 10 launches each "
+                  f"in turns in one trace)")
     plain_ms = median_ms(plain, 3)
     b_ms, b_by = work
     old_txt = ("" if parent is None else
@@ -911,6 +976,64 @@ def phase_sass(parent=None):
                     print(f"[sass] {tree} {name}: innermost loops with a "
                           f"square root or reciprocal, (instructions, MUFU): "
                           + ", ".join(f"({a}, {b})" for a, b in spans))
+
+
+# template arguments of K3's, K4's and K7's kernels with the counting one,
+# last (an earlier tree's have one fewer)
+WALK_ARGS = {"nearest": 2, "occluded": 2, "fused": 3}
+
+
+def walk_registers_against(parent):
+    """`[ptxas]`: the registers of K3's, K4's and K7's instances that run
+    with the device counters off (`nearest_kernel<G, false>`,
+    `occluded_kernel<G, false>`, `fused_kernel<G, S, false>`, named
+    without the counting argument) in this tree's culled.cu and
+    megakernel.cu, which must equal those of the parent tree's instances
+    of the same names. Returns {name: (this tree's, the parent's)}."""
+    import re
+
+    from skele_raytracer_tpu_torch.ops.cuda import _build
+
+    def regs(lines):
+        out = {}
+        for line in lines:
+            name, rest = line.split(": ", 1)
+            m = re.match(r"(nearest|occluded|fused)_kernel<", name)
+            if not m:
+                continue
+            if name.count(",") + 1 == WALK_ARGS[m.group(1)]:  # has COUNT
+                if not name.endswith(", false>"):
+                    continue  # the counting instance
+                name = name[:-len(", false>")] + ">"
+            out[name] = int(re.search(r"Used (\d+) registers",
+                                      rest).group(1))
+        return out
+
+    libs = ("culled", "megakernel")
+    out = os.path.join(REPO, "build", "parent_kernels")
+    procs = {lib: subprocess.Popen(  # this tree's, whether built or cached
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-o", os.path.join(out, f"this_{lib}.so"),
+         os.path.join(str(_build.CSRC), f"{lib}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for lib in libs}
+    pairs = {}
+    for lib in libs:
+        _, err = procs[lib].communicate(timeout=600)
+        check(procs[lib].returncode == 0, f"{lib}.cu build failed:\n{err}")
+        mine = regs(ptxas_summary(err))
+        theirs = regs(parent.ptxas[lib])
+        check(mine and mine.keys() == theirs.keys(),
+              f"{lib}: the walks' instances differ from the parent's: "
+              f"{sorted(mine)} against {sorted(theirs)}")
+        pairs.update({k: (mine[k], theirs[k]) for k in sorted(mine)})
+    differ = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    print(f"[ptxas] registers of K3's, K4's and K7's instances with the "
+          f"counters off against the parent's: {len(pairs) - len(differ)} "
+          f"of {len(pairs)} equal"
+          + "".join(f"; {k} {a} against {b}" for k, (a, b) in differ.items()))
+    check(not differ, "the walks' registers differ from the parent's")
+    return pairs
 
 
 # the lab instances whose registers and spills `phase_sass_lab` prints side
@@ -1652,8 +1775,9 @@ def phase_mesh_timings(smi, parent=None):
     main-path chunk's shape (CUDA events, median of warm runs): K3 at
     dragon's parity primary chunk and at both waves of the clean gillum16
     chunk 37, K4 at that chunk's bounce and primary shadow waves, K5 at a
-    65,536-ray chunk of a 700-triangle mesh (each `time_redesigned`; K5
-    with `parent`, the parent tree's K5 in turns, bitwise equal); and
+    65,536-ray chunk of a 700-triangle mesh (each `time_redesigned`; with
+    `parent`, the parent tree's K3, K4 and K5 in turns, bitwise equal);
+    and
     `render` end to end for dragon parity and clean gillum16."""
     from skele_raytracer_tpu_torch.config import CLEAN, PARITY, RenderConfig
     from skele_raytracer_tpu_torch.models.renderer import render
@@ -1670,12 +1794,12 @@ def phase_mesh_timings(smi, parent=None):
             "culled_nearest", label, feats.shape[0], smi,
             lambda g: culled.culled_nearest_kernel(feats, mesh, lvs,
                                                    quirks=quirks, lanes=g),
-            lambda g: f"nearest_kernel<{g}>",
+            lambda g: f"nearest_kernel<{g}, false>",
             lambda: culled.culled_nearest_torch(
                 feats, mesh.rec, lvs, sign=1.0 if parity else -1.0,
                 clip=not parity),
-            mesh_work(o, d, mesh, quirks, live=live), None, culled, None,
-            None)
+            mesh_work(o, d, mesh, quirks, live=live), parent, culled,
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
 
     def k4(wave, label, o, d, live):
         feats, t_bound, lvs = _sorted_wave(
@@ -1686,11 +1810,11 @@ def phase_mesh_timings(smi, parent=None):
             lambda g: culled.culled_occluded_kernel(
                 feats, t_bound, mesh, lvs, quirks=CLEAN, t_clip=1e-4,
                 lanes=g),
-            lambda g: f"occluded_kernel<{g}>",
+            lambda g: f"occluded_kernel<{g}, false>",
             lambda: culled.culled_occluded_torch(feats, t_bound, mesh.rec,
                                                  lvs, sign=-1.0, t_clip=1e-4),
-            occluded_work(o, d, mesh, CLEAN, live=live), None, culled, None,
-            None, lambda n: culled.occluded_lanes())
+            occluded_work(o, d, mesh, CLEAN, live=live), parent, culled,
+            torch.equal, lambda n: culled.occluded_lanes())
 
     # parity primary wave: chunk 2 of 65536 ids (rows 204-307), coarse
     scene, _ = dragon_waves(PARITY, torch.arange(1, device="cuda"), 1)
@@ -1729,7 +1853,7 @@ def phase_mesh_timings(smi, parent=None):
                                              clip=True, lanes=g),
         lambda g: f"triangle_kernel<{g}>",
         lambda: k5.triangle_nearest_torch(feats, rec, sign=-1.0, clip=True),
-        k5_work(CHUNK_RAYS, tr.v0.shape[0]), parent, k5, "triangle_kernel",
+        k5_work(CHUNK_RAYS, tr.v0.shape[0]), parent, k5,
         lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)),
         lambda n: k5.launcher_lanes(), k5.LANES)
 
@@ -2731,12 +2855,15 @@ def phase_k6(smi, parent=None):
             for g in ik.K6_SWEEP_LANES})
         calls = [entry]
         if plib is not None:
-            old = lambda: k6_parent_entry(plib, *ops, 1.0)
+            if hasattr(plib, "sphere_nearest_hits"):  # this tree's entry
+                old = lambda: parent.call(ik, entry)
+            else:
+                old = lambda: k6_parent_entry(plib, *ops, 1.0)
+                fns["sphere_kernel"] = old  # the parent's kernel's own name
             got, was = entry(), old()
             for a, b, name in zip(got, was, ("t", "index", "hit")):
                 check(torch.equal(a, b), f"K6 {s}: the parent tree's K6 "
                       f"differs in {name} on {(a != b).sum().item()} rays")
-            fns["sphere_kernel"] = old  # the parent's kernel's own name
             calls.append(old)
         dev = device_ms(fns)
         call_ms = turns_ms(calls)
@@ -2748,7 +2875,8 @@ def phase_k6(smi, parent=None):
         ms = dev["sphere_nearest_kernel<1>"]
         b_ms, b_by = k6_work(n, S)
         old_txt = ("" if plib is None else
-                   f"; the parent tree's: kernel {dev['sphere_kernel']:.4f} "
+                   f"; the parent tree's: kernel "
+                   f"{dev.get('sphere_kernel', per_call[1][0]):.4f} "
                    f"ms, entry call {call_ms[1]:.4f} ms, {per_call[1][1]:g} "
                    f"launches and {per_call[1][0]:.4f} ms of device time per "
                    f"call, outputs bitwise equal on all {n} rays")
@@ -3090,10 +3218,10 @@ def phase_fused_main(smi, parent=None):
             smi,
             lambda g: mk.fused_shade_kernel(feats, lvs, scene.clusters,
                                             *tabs, use_shadows=True, lanes=g),
-            lambda g: f"fused_kernel<{g}, true>",
+            lambda g: f"fused_kernel<{g}, true, false>",
             lambda: mk.fused_shade_torch(feats, lvs, scene.clusters.rec,
                                          *tabs, use_shadows=True),
-            fused_work(o, d, scene, outs, True, live=live), parent, mk, None,
+            fused_work(o, d, scene, outs, True, live=live), parent, mk,
             lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
     return out
 
@@ -3444,7 +3572,7 @@ def phase_surface(smi):
     remaining band), byte-equal to a one-shot CLI render; the bands'
     cost beside one-shot `render`; `--profile` on a test.scn Whitted run
     (256x192, a process of its own), whose trace must name K3's and K4's
-    kernels; `debug.checked_render`
+    kernels and the wavefront's stages; `debug.checked_render`
     of test.scn 64x48 clean Whitted on the card."""
     from skele_raytracer_tpu_torch import cli
     from skele_raytracer_tpu_torch.config import CLEAN, RenderConfig
@@ -3539,15 +3667,21 @@ def phase_surface(smi):
     check(proc.returncode == 0,
           f"the --profile run failed: {proc.stderr[-1500:]}")
     with open(trace) as f:
-        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
-                 if e.get("cat") == "kernel"]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    stages = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
     k3 = sum("nearest_kernel<" in k for k in names)
     k4 = sum("occluded_kernel<" in k for k in names)
     check(k3 > 0 and k4 > 0, f"the --profile trace names {k3} K3 and {k4} "
           f"K4 kernels")
+    want = {"render", "chunk", "wave", "sort", "launch.k3", "launch.k4"}
+    check(want <= stages, f"the --profile trace lacks the stages "
+          f"{sorted(want - stages)}")
     print(f"[surface] --profile on test.scn 256x192 clean Whitted depth "
           f"{WHITTED_DEPTH} shadows: {os.path.getsize(trace)} bytes, "
-          f"{len(names)} kernel events, {k3} of K3, {k4} of K4 (ok)")
+          f"{len(names)} kernel events, {k3} of K3, {k4} of K4, the "
+          f"program's stages {sorted(stages)} (ok)")
 
     cfg = RenderConfig(width=64, height=48, quirks=CLEAN,
                        max_depth=WHITTED_DEPTH, use_shadows=True,
@@ -3832,23 +3966,12 @@ def phase_example(smi):
 
 
 def phase_roofline(smi, parity):
-    """`utils/roofline.analyze_trace` of the --profile trace that
-    `phase_surface` wrote, and `sol_summary` of K1's counted work at the
-    1080p parity headline from `render`'s wall time and K1's time."""
+    """`sol_summary` of K1's counted work at the 1080p parity headline
+    from `render`'s wall time and K1's time."""
     from skele_raytracer_tpu_torch.config import PARITY
     from skele_raytracer_tpu_torch.ops.cuda import pathtrace as pt
     from skele_raytracer_tpu_torch.utils import roofline
 
-    stats = roofline.analyze_trace(os.path.join(SCRATCH, "profile"))
-    check(stats, "analyze_trace found no kernel in the --profile trace")
-    busy = sum(s.total_s for s in stats)
-    top = "; ".join(
-        f"{s.name[:48]} {s.total_s * 1e3:.3f} ms x{s.count}"
-        + (f" {s.physical_gbps:.1f} GB/s ({s.sol_pct:.2f}% of HBM)"
-           if s.physical_bytes else "") for s in stats[:5])
-    print(f"[roofline] analyze_trace of the test.scn Whitted --profile "
-          f"trace: {len(stats)} kernels, {busy * 1e3:.3f} ms of device time; "
-          f"top 5: {top}")
     scene, cfg = headline(PARITY)
     n = cfg.width * cfg.height * cfg.samples_per_pixel
     model = k1_model(pt._static_kernel_args(scene, cfg), n)
@@ -3873,6 +3996,8 @@ def main() -> int:
     parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
     phase_sass(parent)
     phase_sass_lab(parent)
+    if parent is not None:
+        walk_registers_against(parent)
     worst_small = phase_kernel_vs_plain()
     worst_mesh = phase_mesh_kernels_vs_plain()
     t0 = time.perf_counter()

@@ -1,0 +1,10 @@
+"""pairs_per_live_ray.k3: (ray, cluster) pairs per live ray of K3's
+nearest-hit walks: Σ pairs ÷ Σ live rays over the traced window. A block
+counts n x its live rays, n the length of its shortlist (the program's
+device counters; csrc/cluster_walk.cuh count_walk)."""
+
+from perfbench import spans
+
+
+def read(run):
+    return spans.walk_ratio("k3", "pairs", "live")

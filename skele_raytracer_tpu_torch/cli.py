@@ -13,7 +13,8 @@ on the CPU, or auto (cuda when a GPU is visible, else torch).
                         (models/progressive.py), implied by --resume and
                         --preview-dir; --band-rows sets the band height
   --profile DIR         write a torch.profiler trace of the run to
-                        DIR/trace.json (utils/profiling.py)
+                        DIR/trace.json (utils/profiling.py): the
+                        program's stages above its ops and kernels
   --mesh                the default: with more than one visible GPU, a
                         frame's rays are sharded over all of them
                         (parallel/api.py `render_sharded`); with one GPU,
@@ -59,7 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ray-batch chunk size of the chunked integrator")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to "
-                   "DIR/trace.json")
+                   "DIR/trace.json: the program's stages (frame, chunk, "
+                   "wave, sort, K1's tables and planes, each kernel "
+                   "wrapper) above its ops and kernels")
     p.add_argument("--backend", default="cuda", choices=BACKENDS,
                    help="cuda (default): hand-written CUDA kernels on the "
                    "GPU, an error without one; torch: their plain PyTorch "

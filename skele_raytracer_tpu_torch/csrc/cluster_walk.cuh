@@ -144,6 +144,27 @@ __device__ int shortlist(const Shared& s, int C, bool active, Enter enter,
   return n;
 }
 
+// ---- device counters (utils/profiling.py `walk_counters`) ----------------
+
+// The block's count of a walk, right after cw::shortlist returned n: into
+// ctr (the kernel's row: rays, live rays, (ray, cluster) pairs), thread 0
+// adds the block's rays (`ray`: one in range), the rays it holds live and
+// n x live, the pairs its live rays walk at most. Every thread of the
+// block calls it (two block barriers), in a kernel's counting instance
+// only: K3, K4 and K7 launch it when the row is given.
+template <int G>
+__device__ inline void count_walk(unsigned long long* ctr, bool ray,
+                                  bool live, int n) {
+  const bool first = threadIdx.x % G == 0;
+  const int rays = __syncthreads_count(first && ray);
+  const int lives = __syncthreads_count(first && live);
+  if (threadIdx.x == 0) {
+    atomicAdd(ctr, (unsigned long long)rays);
+    atomicAdd(ctr + 1, (unsigned long long)lives);
+    atomicAdd(ctr + 2, (unsigned long long)n * (unsigned long long)lives);
+  }
+}
+
 // ---- the ring of staged clusters ------------------------------------------
 
 __device__ inline uint32_t smem_addr(const void* p) {

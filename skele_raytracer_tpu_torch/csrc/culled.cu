@@ -26,7 +26,8 @@
 // per ray, and each block reads only its shortlisted clusters' records
 // (L2-resident: dragon's are 0.8 MB).
 //
-// K3, `nearest_kernel<G>` (cluster_walk.cuh). The first port ran one thread
+// K3, `nearest_kernel<G, COUNT>` (cluster_walk.cuh; COUNT: the instance
+// that feeds the device counters). The first port ran one thread
 // per ray in 256-ray tiles: dragon's 4,096-ray primary wave filled 16
 // blocks of 132 SMs, a warp ran a cluster's whole loop when one of its rays
 // entered the box, the tile walked the union of 256 rays' shortlists, and
@@ -49,7 +50,7 @@
 // after the product (about a third of each pair's work) stay on the FP32
 // cores anyway.
 //
-// K4, `occluded_kernel<G>`, on the same walk. The first port ran one
+// K4, `occluded_kernel<G, COUNT>`, on the same walk. The first port ran one
 // thread per ray in 256-ray tiles with synchronous staging: a shadow wave
 // is mostly dead rays (84% of dragon's bounce shadow wave; the wrapper
 // sorts them last), so about 41 of its 256 blocks held a live ray, and a
@@ -85,14 +86,15 @@ struct CullArgs {
   float t_clip;      // near clip (K3 when clip; K4 always)
 };
 
-template <int G>
+template <int G, bool COUNT>
 __global__ void __launch_bounds__(cw::kThreads)
     nearest_kernel(CullArgs a, const float* __restrict__ feats,
                    const float* __restrict__ live,
                    const float* __restrict__ rec, const float* __restrict__ lo,
                    const float* __restrict__ hi,
                    const float* __restrict__ root, float* __restrict__ out_t,
-                   int32_t* __restrict__ out_i) {
+                   int32_t* __restrict__ out_i,
+                   unsigned long long* __restrict__ ctr) {
   extern __shared__ float4 smem4[];
   __shared__ uint64_t s_bar[2];
   __shared__ int s_n;
@@ -117,6 +119,7 @@ __global__ void __launch_bounds__(cw::kThreads)
                             tmax);
     return a.allow_negative ? e : (e && tmax > 0.0f);
   }, &s_n);
+  if (COUNT) cw::count_walk<G>(ctr, r < a.n, alive, n);
 
   // settle bound: no hit lies past the ray's exit from the root box
   float texit;
@@ -149,7 +152,7 @@ __global__ void __launch_bounds__(cw::kThreads)
   }
 }
 
-template <int G>
+template <int G, bool COUNT>
 __global__ void __launch_bounds__(cw::kThreads)
     occluded_kernel(CullArgs a, const float* __restrict__ feats,
                     const float* __restrict__ bound,
@@ -158,7 +161,8 @@ __global__ void __launch_bounds__(cw::kThreads)
                     const float* __restrict__ lo,
                     const float* __restrict__ hi,
                     const float* __restrict__ root,
-                    float* __restrict__ out_occ) {
+                    float* __restrict__ out_occ,
+                    unsigned long long* __restrict__ ctr) {
   extern __shared__ float4 smem4[];
   __shared__ uint64_t s_bar[2];
   __shared__ int s_n;
@@ -169,6 +173,7 @@ __global__ void __launch_bounds__(cw::kThreads)
   // any mbarrier is armed or any copy started
   if (!__syncthreads_or(alive)) {
     if (r < a.n && lane == 0) out_occ[r] = 0.0f;
+    if (COUNT) cw::count_walk<G>(ctr, r < a.n, false, 0);
     return;
   }
   const cw::Shared sh = cw::carve(smem4, a.C, a.cs, 0);
@@ -190,6 +195,7 @@ __global__ void __launch_bounds__(cw::kThreads)
                             tmax);
     return e && (a.allow_negative || tmax > 0.0f) && tmin < bnd;
   }, &s_n);
+  if (COUNT) cw::count_walk<G>(ctr, r < a.n, alive, n);
 
   // settle bound: no occluder lies past the ray's exit from the root box
   // or past its bound
@@ -228,22 +234,26 @@ __global__ void __launch_bounds__(cw::kThreads)
 // lanes at both sizes.
 constexpr int kOccludedLanes = 32;
 
+// Each launcher runs a kernel's counting instance (COUNT) only when the
+// device counters' row is given, so that with the counters off the kernel
+// is the one built before them (as K7's, megakernel.cu).
 template <int G>
 int launch_occluded(const CullArgs& a, const float* feats, const float* bound,
                     const float* live, const float* rec, const float* lo,
                     const float* hi, const float* root, float* out_occ,
-                    void* stream) {
+                    void* stream, unsigned long long* ctr) {
+  const auto kernel = ctr != nullptr ? occluded_kernel<G, true>
+                                     : occluded_kernel<G, false>;
   const size_t smem = cw::smem_bytes(a.C, a.cs, 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        occluded_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   constexpr int rays = cw::kThreads / G;
-  occluded_kernel<G><<<(a.n + rays - 1) / rays, cw::kThreads, smem,
-                       (cudaStream_t)stream>>>(a, feats, bound, live, rec, lo,
-                                               hi, root, out_occ);
+  kernel<<<(a.n + rays - 1) / rays, cw::kThreads, smem,
+           (cudaStream_t)stream>>>(a, feats, bound, live, rec, lo, hi, root,
+                                   out_occ, ctr);
   return (int)cudaGetLastError();
 }
 
@@ -251,18 +261,19 @@ template <int G>
 int launch_nearest(const CullArgs& a, const float* feats, const float* live,
                    const float* rec, const float* lo, const float* hi,
                    const float* root, float* out_t, int32_t* out_i,
-                   void* stream) {
+                   void* stream, unsigned long long* ctr) {
+  const auto kernel = ctr != nullptr ? nearest_kernel<G, true>
+                                     : nearest_kernel<G, false>;
   const size_t smem = cw::smem_bytes(a.C, a.cs, 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nearest_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   constexpr int rays = cw::kThreads / G;
-  nearest_kernel<G><<<(a.n + rays - 1) / rays, cw::kThreads, smem,
-                      (cudaStream_t)stream>>>(a, feats, live, rec, lo, hi,
-                                              root, out_t, out_i);
+  kernel<<<(a.n + rays - 1) / rays, cw::kThreads, smem,
+           (cudaStream_t)stream>>>(a, feats, live, rec, lo, hi, root, out_t,
+                                   out_i, ctr);
   return (int)cudaGetLastError();
 }
 
@@ -273,26 +284,29 @@ int launch_nearest(const CullArgs& a, const float* feats, const float* live,
 // rec [C, cs, 20], lo/hi [C, 3] (widened cull boxes), root [6] (root box
 // lo, hi). Writes t [n] (BIG = miss) and the ORIGINAL triangle index [n]
 // (BIG_I = miss). Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError().
+// synchronise; returns cudaGetLastError(). `counters`, last (after the
+// stream, where a launcher of an earlier tree ignores it): K3's row of the
+// device counters (cluster_walk.cuh count_walk), or nullptr.
 extern "C" int culled_nearest_lanes(int G, int n, int C, int cs,
                                     int allow_negative, int clip, float sign,
                                     float t_clip, const float* feats,
                                     const float* live, const float* rec,
                                     const float* lo, const float* hi,
                                     const float* root, float* out_t,
-                                    int32_t* out_i, void* stream) {
+                                    int32_t* out_i, void* stream,
+                                    unsigned long long* counters) {
   if (n <= 0) return (int)cudaGetLastError();
   const CullArgs a{n, C, cs, allow_negative, clip, sign, t_clip};
   switch (G) {
     case 8:
       return launch_nearest<8>(a, feats, live, rec, lo, hi, root, out_t,
-                               out_i, stream);
+                               out_i, stream, counters);
     case 16:
       return launch_nearest<16>(a, feats, live, rec, lo, hi, root, out_t,
-                                out_i, stream);
+                                out_i, stream, counters);
     case 32:
       return launch_nearest<32>(a, feats, live, rec, lo, hi, root, out_t,
-                                out_i, stream);
+                                out_i, stream, counters);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -303,25 +317,28 @@ extern "C" int culled_nearest(int n, int C, int cs, int allow_negative,
                               const float* feats, const float* live,
                               const float* rec, const float* lo,
                               const float* hi, const float* root,
-                              float* out_t, int32_t* out_i, void* stream) {
+                              float* out_t, int32_t* out_i, void* stream,
+                              unsigned long long* counters) {
   return culled_nearest_lanes(cw::lanes_for(n), n, C, cs, allow_negative,
                               clip, sign, t_clip, feats, live, rec, lo, hi,
-                              root, out_t, out_i, stream);
+                              root, out_t, out_i, stream, counters);
 }
 
 // K4 with kOccludedLanes lanes per ray: is any triangle strictly inside
 // (t_clip, bound) along each ray? Operands as culled_nearest_lanes, plus
-// bound [n] (BIG = unbounded). Writes 1.0 / 0.0 into out_occ [n].
+// bound [n] (BIG = unbounded). Writes 1.0 / 0.0 into out_occ [n]; counts
+// into K4's row of `counters` unless it is nullptr.
 extern "C" int culled_occluded(int n, int C, int cs, int allow_negative,
                                float sign, float t_clip, const float* feats,
                                const float* bound, const float* live,
                                const float* rec, const float* lo,
                                const float* hi, const float* root,
-                               float* out_occ, void* stream) {
+                               float* out_occ, void* stream,
+                               unsigned long long* counters) {
   if (n <= 0) return (int)cudaGetLastError();
   const CullArgs a{n, C, cs, allow_negative, 1, sign, t_clip};
   return launch_occluded<kOccludedLanes>(a, feats, bound, live, rec, lo, hi,
-                                         root, out_occ, stream);
+                                         root, out_occ, stream, counters);
 }
 
 extern "C" int culled_occluded_lanes_per_ray() { return kOccludedLanes; }
@@ -337,19 +354,20 @@ extern "C" int culled_occluded_lanes(int G, int n, int C, int cs,
                                      const float* bound, const float* live,
                                      const float* rec, const float* lo,
                                      const float* hi, const float* root,
-                                     float* out_occ, void* stream) {
+                                     float* out_occ, void* stream,
+                                     unsigned long long* counters) {
   if (n <= 0) return (int)cudaGetLastError();
   const CullArgs a{n, C, cs, allow_negative, 1, sign, t_clip};
   switch (G) {
     case 8:
       return launch_occluded<8>(a, feats, bound, live, rec, lo, hi, root,
-                                out_occ, stream);
+                                out_occ, stream, counters);
     case 16:
       return launch_occluded<16>(a, feats, bound, live, rec, lo, hi, root,
-                                 out_occ, stream);
+                                 out_occ, stream, counters);
     case 32:
       return launch_occluded<32>(a, feats, bound, live, rec, lo, hi, root,
-                                 out_occ, stream);
+                                 out_occ, stream, counters);
   }
   return (int)cudaErrorInvalidValue;
 }

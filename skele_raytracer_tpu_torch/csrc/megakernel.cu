@@ -80,7 +80,7 @@ __host__ __device__ inline int extra_floats(const FusedArgs& a) {
   return a.S * fm::SROW + a.L * fm::LROW + 6;
 }
 
-template <int G, bool SHADOWS>
+template <int G, bool SHADOWS, bool COUNT>
 __global__ void __launch_bounds__(cw::kThreads)
     fused_kernel(FusedArgs a, const float* __restrict__ feats,
                  const float* __restrict__ live,
@@ -93,11 +93,14 @@ __global__ void __launch_bounds__(cw::kThreads)
                  float* __restrict__ out_direct, float* __restrict__ out_t,
                  int32_t* __restrict__ out_kind,
                  int32_t* __restrict__ out_index,
-                 float* __restrict__ out_unsh) {
+                 float* __restrict__ out_unsh,
+                 unsigned long long* __restrict__ ctr) {
   extern __shared__ float4 smem4[];
   __shared__ uint64_t s_bar[2];
   __shared__ int s_n;
+  __shared__ unsigned s_pairs;  // the block's shadow-walk pairs (COUNT)
   const int tid = threadIdx.x;
+  if (COUNT && tid == 0) s_pairs = 0u;
   const cw::Shared sh = cw::carve(smem4, a.C, a.cs, extra_floats(a));
   float* s_sph = sh.extra;                // [S * SROW]
   float* s_lig = s_sph + a.S * fm::SROW;  // [L * LROW]
@@ -127,6 +130,7 @@ __global__ void __launch_bounds__(cw::kThreads)
     return mm::slab(o, inv_d, sh.lo + 3 * c, sh.hi + 3 * c, tmin, tmax) &&
            (tmax > 0.0f);
   }, &s_n);
+  if (COUNT) cw::count_walk<G>(ctr, r < a.n, alive, n_list);
   float texit;
   {
     float tmin;
@@ -164,6 +168,7 @@ __global__ void __launch_bounds__(cw::kThreads)
   const bool out = r < a.n && lane == 0;
 
   // ---- lights: shadow test, then the Blinn-Phong term -------------------
+  unsigned shadow_pairs = 0;  // the ray's, m per shadow walk it takes
   for (int l = 0; l < a.L; ++l) {
     const float* lr = s_lig + l * fm::LROW;
     const bool point = l < a.Lp;
@@ -184,6 +189,7 @@ __global__ void __launch_bounds__(cw::kThreads)
                           tmax) && (tmax > fm::T_EPS) && (tmin < bound);
         };
         const int m = cw::shortlist<G>(sh, a.C, hit && !occ, enters, &s_n);
+        if (COUNT && lane == 0 && hit && !occ) shadow_pairs += m;
         cw::walk(ring, rec, sh.list, m, [&](int p, const float* recs) {
           float tmin;
           if (hit && !occ && enters(sh.list[p], tmin))
@@ -200,6 +206,14 @@ __global__ void __launch_bounds__(cw::kThreads)
     if (out) out_unsh[(size_t)r * a.L + l] = alive ? unsh : 1.0f;
   }
 
+  // the device counters' shadow walks: each ray's pairs (m per walk it
+  // takes) summed into the block's in shared memory, which thread 0 adds
+  if (COUNT) {
+    if (shadow_pairs != 0u) atomicAdd(&s_pairs, shadow_pairs);
+    __syncthreads();
+    if (tid == 0 && s_pairs != 0u)
+      atomicAdd(ctr + 2, (unsigned long long)s_pairs);
+  }
   if (out) {
     for (int k = 0; k < 3; ++k)
       out_direct[(size_t)r * 3 + k] = alive ? s.direct[k] : 0.0f;
@@ -209,25 +223,30 @@ __global__ void __launch_bounds__(cw::kThreads)
   }
 }
 
+// The counting instance (COUNT) runs only when the device counters' row
+// is given: K7 testing the row for null itself ran 3.2% slower with the
+// counters off (dragon's bounce wave, CUDA events), and the instance
+// without them is the earlier K7's SASS, instruction for instruction.
 template <int G, bool SHADOWS>
 int launch(const FusedArgs& a, const float* feats, const float* live,
            const float* rec, const float* lo, const float* hi,
            const float* root, const float* shade, const float* sph,
            const float* lights, const float* cnst, float* out_direct,
            float* out_t, int32_t* out_kind, int32_t* out_index,
-           float* out_unsh, void* stream) {
+           float* out_unsh, void* stream, unsigned long long* ctr) {
+  const auto kernel = ctr != nullptr ? fused_kernel<G, SHADOWS, true>
+                                     : fused_kernel<G, SHADOWS, false>;
   const size_t smem = cw::smem_bytes(a.C, a.cs, extra_floats(a));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_kernel<G, SHADOWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   constexpr int rays = cw::kThreads / G;
-  fused_kernel<G, SHADOWS><<<(a.n + rays - 1) / rays, cw::kThreads, smem,
-                             (cudaStream_t)stream>>>(
+  kernel<<<(a.n + rays - 1) / rays, cw::kThreads, smem,
+           (cudaStream_t)stream>>>(
       a, feats, live, rec, lo, hi, root, shade, sph, lights, cnst,
-      out_direct, out_t, out_kind, out_index, out_unsh);
+      out_direct, out_t, out_kind, out_index, out_unsh, ctr);
   return (int)cudaGetLastError();
 }
 
@@ -237,14 +256,15 @@ int launch_g(const FusedArgs& a, int use_shadows, const float* feats,
              const float* hi, const float* root, const float* shade,
              const float* sph, const float* lights, const float* cnst,
              float* out_direct, float* out_t, int32_t* out_kind,
-             int32_t* out_index, float* out_unsh, void* stream) {
+             int32_t* out_index, float* out_unsh, void* stream,
+             unsigned long long* ctr) {
   if (use_shadows)
     return launch<G, true>(a, feats, live, rec, lo, hi, root, shade, sph,
                            lights, cnst, out_direct, out_t, out_kind,
-                           out_index, out_unsh, stream);
+                           out_index, out_unsh, stream, ctr);
   return launch<G, false>(a, feats, live, rec, lo, hi, root, shade, sph,
                           lights, cnst, out_direct, out_t, out_kind,
-                          out_index, out_unsh, stream);
+                          out_index, out_unsh, stream, ctr);
 }
 
 }  // namespace
@@ -256,7 +276,10 @@ int launch_g(const FusedArgs& a, int use_shadows, const float* feats,
 // sph [S, 16], lights [L, 7] (the first Lp point lights), cnst [6]
 // (fused_math.cuh layouts). Writes direct [n, 3], t [n], kind [n], index
 // [n] and unsh [n, L]. Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError().
+// synchronise; returns cudaGetLastError(). `counters`, last (after the
+// stream, where a launcher of an earlier tree ignores it): K7's row of the
+// device counters, or nullptr: the primary walk's rays, live rays and
+// pairs (cluster_walk.cuh count_walk), and each shadow walk's pairs.
 extern "C" int fused_shade_lanes(int G, int n, int C, int cs, int T, int S,
                                  int Lp, int L, int use_shadows,
                                  const float* feats, const float* live,
@@ -266,14 +289,15 @@ extern "C" int fused_shade_lanes(int G, int n, int C, int cs, int T, int S,
                                  const float* lights, const float* cnst,
                                  float* out_direct, float* out_t,
                                  int32_t* out_kind, int32_t* out_index,
-                                 float* out_unsh, void* stream) {
+                                 float* out_unsh, void* stream,
+                                 unsigned long long* counters) {
   if (n <= 0) return (int)cudaGetLastError();
   const FusedArgs a{n, C, cs, T, S, Lp, L};
 #define K7_LAUNCH(g)                                                        \
   case g:                                                                   \
     return launch_g<g>(a, use_shadows, feats, live, rec, lo, hi, root,      \
                        shade, sph, lights, cnst, out_direct, out_t,         \
-                       out_kind, out_index, out_unsh, stream);
+                       out_kind, out_index, out_unsh, stream, counters);
   switch (G) {
     K7_LAUNCH(8)
     K7_LAUNCH(16)
@@ -293,9 +317,9 @@ extern "C" int fused_shade(int n, int C, int cs, int T, int S, int Lp, int L,
                            const float* cnst, float* out_direct,
                            float* out_t, int32_t* out_kind,
                            int32_t* out_index, float* out_unsh,
-                           void* stream) {
+                           void* stream, unsigned long long* counters) {
   return fused_shade_lanes(cw::lanes_for(n), n, C, cs, T, S, Lp, L,
                            use_shadows, feats, live, rec, lo, hi, root, shade,
                            sph, lights, cnst, out_direct, out_t, out_kind,
-                           out_index, out_unsh, stream);
+                           out_index, out_unsh, stream, counters);
 }

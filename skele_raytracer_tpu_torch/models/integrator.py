@@ -59,6 +59,7 @@ from skele_raytracer_tpu_torch.ops.shading import (
     gather_material,
     refraction,
 )
+from skele_raytracer_tpu_torch.utils import profiling
 
 _PI = math.pi
 _MASK = 0xFFFFFFFF
@@ -162,8 +163,9 @@ def integrate_linear(scene, cfg: RenderConfig, seed, o, d, sample_ids):
     Monte-Carlo path tracing. sample_ids [C]: the global sample ids (RNG
     counters, values in [0, 2^32))."""
     P = cfg.paths_per_sample
-    hits, mat, direct, shades, miss = _shade_hit(scene, cfg, seed, o, d,
-                                                 sample_ids, 0)
+    with profiling.span("wave", 0):
+        hits, mat, direct, shades, miss = _shade_hit(scene, cfg, seed, o, d,
+                                                     sample_ids, 0)
     background = scene.background[None, :].expand_as(direct)
 
     if not cfg.monte_carlo:
@@ -191,8 +193,9 @@ def integrate_linear(scene, cfg: RenderConfig, seed, o, d, sample_ids):
     path_l = torch.zeros_like(t_b)
     for bounce in range(1, cfg.max_depth):
         live = (t_b != 0).any(dim=1).to(torch.float32)
-        h, m, dir_b, sh, ms = _shade_hit(scene, cfg, seed, o_b, d_b, path_ids,
-                                         bounce, live)
+        with profiling.span("wave", bounce):
+            h, m, dir_b, sh, ms = _shade_hit(scene, cfg, seed, o_b, d_b,
+                                             path_ids, bounce, live)
         bg = scene.background[None, :].expand_as(dir_b)
         path_l = path_l + t_b * torch.where(
             ms[:, None], bg,
@@ -227,8 +230,9 @@ def integrate_whitted(scene, cfg: RenderConfig, seed, o, d, sample_ids):
 
     for depth in range(cfg.max_depth):
         live = (weight != 0).any(dim=1).to(torch.float32)
-        hits, mat, direct, shades, miss = _shade_hit(
-            scene, cfg, seed, frontier_o, frontier_d, ids, depth, live)
+        with profiling.span("wave", depth):
+            hits, mat, direct, shades, miss = _shade_hit(
+                scene, cfg, seed, frontier_o, frontier_d, ids, depth, live)
         bg = scene.background[None, :].expand_as(direct)
         l_local = torch.where(miss[:, None], bg,
                               torch.where(shades[:, None], direct, 0.0))

@@ -37,6 +37,7 @@ from skele_raytracer_tpu_torch.models.integrator import integrate
 from skele_raytracer_tpu_torch.ops.camera import rays_for_ids
 from skele_raytracer_tpu_torch.ops.cuda import pathtrace
 from skele_raytracer_tpu_torch.scene.types import with_live_normals
+from skele_raytracer_tpu_torch.utils import profiling
 
 
 def _chunk_samples(cfg: RenderConfig) -> int:
@@ -78,11 +79,12 @@ def render_ids_wavefront(scene, cfg: RenderConfig, seed, sample_ids):
     out = []
     for i in range(0, sample_ids.shape[0], chunk):
         ids = sample_ids[i:i + chunk]
-        if grad:
-            out.append(checkpoint(render_ids, scene, cfg, seed, ids,
-                                  use_reentrant=False))
-        else:
-            out.append(render_ids(scene, cfg, seed, ids))
+        with profiling.span("chunk"):
+            if grad:
+                out.append(checkpoint(render_ids, scene, cfg, seed, ids,
+                                      use_reentrant=False))
+            else:
+                out.append(render_ids(scene, cfg, seed, ids))
     return torch.cat(out)
 
 
@@ -103,8 +105,10 @@ def render_ids_chunked(scene, cfg: RenderConfig, seed, sample_ids):
     return render_ids_wavefront(scene, cfg, seed, sample_ids)
 
 
+@profiling.spanned("render")
 def render_radiance(scene, cfg: RenderConfig, seed):
-    """Full-frame radiance [H, W, 3] float32 (pre-quantization)."""
+    """Full-frame radiance [H, W, 3] float32 (pre-quantization); a frame
+    is the span `render` (utils/profiling.py)."""
     cfg = cfg.resolved()
     H, W, spp = cfg.height, cfg.width, cfg.samples_per_pixel
     sample_ids = torch.arange(H * W * spp, dtype=torch.int64,

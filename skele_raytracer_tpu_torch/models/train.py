@@ -33,6 +33,7 @@ from skele_raytracer_tpu_torch.scene.types import (
     replace_leaves,
     scene_leaves,
 )
+from skele_raytracer_tpu_torch.utils import profiling
 
 _MASK = 0xFFFFFFFF
 
@@ -92,31 +93,39 @@ def make_trainable_mask(scene, paths) -> dict:
             for name, leaf in leaf_items(scene)}
 
 
+@profiling.spanned("train.step")
 def train_step(state: TrainState, cfg: RenderConfig, key, target,
                mesh=None, trainable: Optional[dict] = None):
     """One optimization step: loss and gradient of `full_loss` at the
     step's key (`key + step`), or of its sharded form over `mesh`
     (`loss_and_grad_sharded`, the same objective), the trainable mask, an
     Adam update. Leaves the mask zeroes (or that need no gradient) stay
-    bitwise unchanged. Returns (new state, loss)."""
+    bitwise unchanged. Returns (new state, loss). Spans: `train.step`,
+    and in it `train.loss`, `train.backward` (the sharded form's gradient
+    is in its loss), `train.mask` and `train.update`."""
     key = (int(key) + int(state.step)) & _MASK
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     if mesh is None:
-        loss = full_loss(state.scene, cfg, key, target)
-        loss.backward()
+        with profiling.span("train.loss"):
+            loss = full_loss(state.scene, cfg, key, target)
+        with profiling.span("train.backward"):
+            loss.backward()
     else:
-        loss, grads = loss_and_grad_sharded(state.scene, cfg, key, target,
-                                            mesh)
+        with profiling.span("train.loss"):
+            loss, grads = loss_and_grad_sharded(state.scene, cfg, key,
+                                                target, mesh)
         for name, leaf in leaf_items(state.scene):
             leaf.grad = grads.get(name)
     if trainable is not None:
-        for name, leaf in leaf_items(state.scene):
-            if leaf.grad is None:
-                continue
-            m = trainable[name].to(leaf.grad.device)
-            leaf.grad = leaf.grad * m if bool(m.any()) else None
-    opt.step()
+        with profiling.span("train.mask"):
+            for name, leaf in leaf_items(state.scene):
+                if leaf.grad is None:
+                    continue
+                m = trainable[name].to(leaf.grad.device)
+                leaf.grad = leaf.grad * m if bool(m.any()) else None
+    with profiling.span("train.update"):
+        opt.step()
     return state._replace(step=state.step + 1), loss.detach()
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from skele_raytracer_tpu_torch.scene.types import _Tensors
+from skele_raytracer_tpu_torch.utils import profiling
 
 CLUSTER_SIZE = 256  # triangles per cluster for coherent (primary) waves
 FINE_CLUSTER_SIZE = 128  # for incoherent (bounce / bounce-shadow) waves
@@ -170,13 +171,15 @@ def mesh_from_arrays(v0, v1, v2, mask, perm, aabb_lo, aabb_hi, aabb_lo_m,
         root_m=t(root_m))
 
 
+@profiling.timed_counter("scene.clusters_s")
 def build_clusters(v0, v1, v2, mask, cluster_size: int = CLUSTER_SIZE,
                    device=None) -> ClusteredMesh:
     """Host-side build: Morton sort + cluster boxes + triangle records.
     Inputs are the padded scene arrays ([T, 3] x3 + mask, tensors or
     arrays); padding rows sort to dedicated all-padding clusters (their
     boxes are empty -> never hit). The mesh lands on `device` (default:
-    the device of v0)."""
+    the device of v0). Its seconds add to the counter `scene.clusters_s`
+    (utils/profiling.py)."""
     if device is None:
         device = v0.device if isinstance(v0, torch.Tensor) else "cpu"
     v0n, v1n, v2n, m = (as_numpy(a) for a in (v0, v1, v2, mask))

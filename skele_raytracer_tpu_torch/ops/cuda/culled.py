@@ -50,6 +50,7 @@ from skele_raytracer_tpu_torch.ops.cuda.intersect import (
     planes_torch,
 )
 from skele_raytracer_tpu_torch.ops.geometry import cross
+from skele_raytracer_tpu_torch.utils import profiling
 
 BIG_I = 1 << 30  # "no triangle" index of a miss, before the clamp
 N_SUPER = 16  # footprint-key superclusters (high bits of the sort key)
@@ -58,6 +59,7 @@ _DEAD = _MASK  # sort key of a dead ray: sorts to the tail
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"culled_nearest": 0, "culled_occluded": 0}
+profiling.COUNTERS["launches"]["culled"] = LAUNCHES
 
 THREADS = 256  # threads per block of K3 and K7 (csrc/cluster_walk.cuh)
 # lanes per ray K3 and K7 are built for, and K4's lane sweep
@@ -150,6 +152,7 @@ def _footprint_sort_keys(o, d, mesh, *, allow_negative: bool):
     return ((scmask << (32 - n_sc)) & _MASK) | (spatial >> n_sc)
 
 
+@profiling.spanned("sort")
 def _sort_rays(o, d, mesh, quirks: Quirks, live):
     """(order, live_sorted): the footprint order of the rays (dead rays
     last) and the live mask in that order (None when all are live)."""
@@ -250,13 +253,15 @@ _lib = None
 
 
 def bind(lib):
-    """Declares `culled_nearest` and `culled_occluded` of a loaded library
-    (their C signatures have not changed since the port's first mesh
-    kernels, so a library built from an earlier tree binds too)."""
+    """Declares `culled_nearest` and `culled_occluded` of a loaded library.
+    Their C signatures have not changed since the port's first mesh
+    kernels but for the device counters' row, last, after the stream, so
+    a library built from an earlier tree binds too: its launchers ignore
+    that trailing argument."""
     lib.culled_nearest.argtypes = (
-        [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+        [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 10)
     lib.culled_occluded.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+        [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 10)
     for f in (lib.culled_nearest, lib.culled_occluded):
         f.restype = ctypes.c_int
     return lib
@@ -270,7 +275,7 @@ def build_kernel():
 
         lib = bind(load_cuda("culled"))
         lib.culled_nearest_lanes.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+            [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 10)
         lib.culled_nearest_lanes.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -289,7 +294,7 @@ def build_sweep_kernel():
 
         lib = load_cuda("culled_sweep")
         lib.culled_occluded_lanes.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 10)
         lib.culled_occluded_lanes.restype = ctypes.c_int
         _sweep_lib = lib
     return _sweep_lib
@@ -335,11 +340,14 @@ def _launch_common(mesh, quirks: Quirks):
                                                           root)
 
 
+@profiling.spanned("launch.k3")
 def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks,
                           lanes: int | None = None):
     """K3 on CUDA tensors: (t, original index) as `culled_nearest_torch`;
-    counted in LAUNCHES["culled_nearest"]. `lanes`: lanes per ray (one of
-    LANES) in place of the launcher's own choice, for measurements."""
+    counted in LAUNCHES["culled_nearest"], and while spans record in the
+    device counters (`profiling.walk_counters`). `lanes`: lanes per ray
+    (one of LANES) in place of the launcher's own choice, for
+    measurements."""
     _check_operands("culled_nearest", feats, mesh, [live])
     lib = build_kernel()
     dims, tabs = _launch_common(mesh, quirks)
@@ -355,8 +363,9 @@ def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks,
     with torch.cuda.device(feats.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(feats.device).cuda_stream)
-        err = (lib.culled_nearest(*args, stream) if lanes is None
-               else lib.culled_nearest_lanes(lanes, *args, stream))
+        ctr = profiling.walk_counters(feats.device, "k3")
+        err = (lib.culled_nearest(*args, stream, ctr) if lanes is None
+               else lib.culled_nearest_lanes(lanes, *args, stream, ctr))
     if err != 0:
         raise RuntimeError(f"culled_nearest kernel launch failed: CUDA error "
                            f"{err}")
@@ -365,11 +374,13 @@ def culled_nearest_kernel(feats, mesh, live, *, quirks: Quirks,
     return t, idx
 
 
+@profiling.spanned("launch.k4")
 def culled_occluded_kernel(feats, bound, mesh, live, *, quirks: Quirks,
                            t_clip: float, lanes: int | None = None):
     """K4 on CUDA tensors: [R] bool as `culled_occluded_torch`; counted in
-    LAUNCHES["culled_occluded"]. `lanes`: lanes per ray (one of LANES) in
-    place of the launcher's own, through the lane sweep's library, for
+    LAUNCHES["culled_occluded"], and while spans record in the device
+    counters. `lanes`: lanes per ray (one of LANES) in place of the
+    launcher's own, through the lane sweep's library, for
     measurements."""
     _check_operands("culled_occluded", feats, mesh, [bound, live])
     lib = build_kernel() if lanes is None else build_sweep_kernel()
@@ -384,8 +395,9 @@ def culled_occluded_kernel(feats, bound, mesh, live, *, quirks: Quirks,
     with torch.cuda.device(feats.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(feats.device).cuda_stream)
-        err = (lib.culled_occluded(*args, stream) if lanes is None
-               else lib.culled_occluded_lanes(lanes, *args, stream))
+        ctr = profiling.walk_counters(feats.device, "k4")
+        err = (lib.culled_occluded(*args, stream, ctr) if lanes is None
+               else lib.culled_occluded_lanes(lanes, *args, stream, ctr))
     if err != 0:
         raise RuntimeError(f"culled_occluded kernel launch failed: CUDA error "
                            f"{err}")

@@ -36,12 +36,14 @@ import torch
 from skele_raytracer_tpu_torch.config import CLEAN_T_EPS, TRIANGLE_DET_EPS, Quirks
 from skele_raytracer_tpu_torch.ops.cuda._build import check_outputs
 from skele_raytracer_tpu_torch.ops.geometry import cross, dot
+from skele_raytracer_tpu_torch.utils import profiling
 
 BIG = 3.0e38  # stand-in for +inf (a miss), as float32
 REC = 20
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"triangle_nearest": 0, "sphere_nearest": 0}
+profiling.COUNTERS["launches"]["intersect"] = LAUNCHES
 SPH = 5  # floats per sphere row (csrc/sphere_math.cuh)
 
 # Lanes per ray K5 is built for (csrc/intersect.cu triangle_nearest_lanes);

@@ -94,6 +94,7 @@ from skele_raytracer_tpu_torch.ops.cuda._build import check_outputs
 from skele_raytracer_tpu_torch.ops.cuda.culled import BIG_I, _culled_t
 from skele_raytracer_tpu_torch.ops.cuda.intersect import BIG, PLAIN_BLOCK
 from skele_raytracer_tpu_torch.scene.types import _Tensors
+from skele_raytracer_tpu_torch.utils import profiling
 
 TILE_R = 256  # rays per tile: one block (tools/kernel_lab.py TILE_R)
 GROUPS = (1, 2, 4)  # clusters per group the kernels are built for
@@ -124,6 +125,7 @@ ITEM_GROUPS = 2
 # Calls of each kernel's wrapper that launched it, counted where the
 # wrapper launches it (three CUDA kernels each on the split walk, else one).
 LAUNCHES = {k: 0 for k in KERNELS}
+profiling.COUNTERS["launches"]["lab"] = LAUNCHES
 
 
 def split_walk(kind: str, stage: str = DEFAULTS["stage"]) -> bool:

@@ -64,11 +64,13 @@ from skele_raytracer_tpu_torch.ops.geometry import (
     normalize,
     replay_triangle_t,
 )
+from skele_raytracer_tpu_torch.utils import profiling
 
 SROW, TROW, LROW = 16, 14, 7  # csrc/fused_math.cuh row widths
 
 # Launches of the kernel, counted where the wrapper launches it.
 LAUNCHES = {"fused_shade": 0}
+profiling.COUNTERS["launches"]["megakernel"] = LAUNCHES
 
 # The scene leaves the replay reads (dotted paths of scene.types
 # leaf_items), in the order `_FusedShade` takes them.
@@ -268,10 +270,12 @@ _lib = None
 
 
 def bind(lib):
-    """Declares `fused_shade` of a loaded library (its C signature has not
-    changed since the kernel was first ported, so a library built from an
-    earlier tree binds too)."""
-    lib.fused_shade.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 16
+    """Declares `fused_shade` of a loaded library. Its C signature has not
+    changed since the kernel was first ported but for the device
+    counters' row, last, after the stream, so a library built from an
+    earlier tree binds too: its launcher ignores that trailing
+    argument."""
+    lib.fused_shade.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 17
     lib.fused_shade.restype = ctypes.c_int
     return lib
 
@@ -284,7 +288,7 @@ def build_kernel():
 
         lib = bind(load_cuda("megakernel"))
         lib.fused_shade_lanes.argtypes = ([ctypes.c_int] * 9
-                                          + [ctypes.c_void_p] * 16)
+                                          + [ctypes.c_void_p] * 17)
         lib.fused_shade_lanes.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -325,12 +329,16 @@ def _check_operands(feats, live, mesh, tables):
     return lo, hi, root
 
 
+@profiling.spanned("launch.k7")
 def fused_shade_kernel(feats, live, mesh, shade, sph, lights, n_point: int,
                        cnst, *, use_shadows: bool, lanes: int | None = None):
     """K7 on CUDA tensors: the outputs of `fused_shade_torch` (with the
     clustered mesh `mesh` in place of its records); counted in
-    LAUNCHES["fused_shade"]. `lanes`: lanes per ray (one of culled.LANES)
-    in place of the launcher's own choice, for measurements."""
+    LAUNCHES["fused_shade"], and while spans record in the device counters
+    (`profiling.walk_counters`: the primary walk's rays, live rays and
+    pairs, and each shadow walk's pairs). `lanes`: lanes per ray (one of
+    culled.LANES) in place of the launcher's own choice, for
+    measurements."""
     lo, hi, root = _check_operands(feats, live, mesh,
                                    (shade, sph, lights, cnst))
     lib = build_kernel()
@@ -350,8 +358,9 @@ def fused_shade_kernel(feats, live, mesh, shade, sph, lights, n_point: int,
                                      unsh)))
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        err = (lib.fused_shade(*args, stream) if lanes is None
-               else lib.fused_shade_lanes(lanes, *args, stream))
+        ctr = profiling.walk_counters(dev, "k7")
+        err = (lib.fused_shade(*args, stream, ctr) if lanes is None
+               else lib.fused_shade_lanes(lanes, *args, stream, ctr))
     if err != 0:
         raise RuntimeError(f"fused_shade kernel launch failed: CUDA error "
                            f"{err}")
@@ -360,6 +369,7 @@ def fused_shade_kernel(feats, live, mesh, shade, sph, lights, n_point: int,
     return direct, t, kind, index, unsh
 
 
+@profiling.spanned("sort")
 def sort_rays(o, d, mesh, live=None):
     """(order, live in that order or None): the rays sorted by the spatial
     key of ops/cuda/culled.py over the mesh's box, dead rays last (the JAX

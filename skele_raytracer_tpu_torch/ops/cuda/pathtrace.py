@@ -60,6 +60,7 @@ from skele_raytracer_tpu_torch.ops.sampling import (
     tangent_frame,
     threefry2x32,
 )
+from skele_raytracer_tpu_torch.utils import profiling
 
 MAX_SPHERES = 256
 MAX_TRIS = 32
@@ -74,6 +75,7 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 # A "pathtrace_bwd" launch is K2's two stages: the per-block sums and
 # their reduce.
 LAUNCHES = {"pathtrace": 0, "pathtrace_records": 0, "pathtrace_bwd": 0}
+profiling.COUNTERS["launches"]["pathtrace"] = LAUNCHES
 
 
 def use_pathtrace(scene, cfg: RenderConfig) -> bool:
@@ -133,6 +135,7 @@ def _can_replay(scene, cfg: RenderConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned("k1.tables")
 def _pack_tables(scene):
     """The five float32 tables the kernel reads (layouts in
     csrc/frame_math.cuh): spheres [S,16], triangles [T,24] (one zero row
@@ -210,6 +213,7 @@ def _static_kernel_args(scene, cfg: RenderConfig) -> dict:
     )
 
 
+@profiling.spanned("k1.planes")
 def _plane_inputs(cfg: RenderConfig, sample_ids: torch.Tensor):
     """Per-sample planes (ids, xs, ys, cj, ci), flat [N]: the pixel
     column/row and the stratified jitter cell, in float32 from the uint32
@@ -1127,6 +1131,7 @@ def _kernel_args(tabs, planes):
         p.contiguous() for p in planes[1:]]
 
 
+@profiling.spanned("launch.k1")
 def pathtrace_forward(tabs, planes, seed, static: dict, records=False,
                       variant=None):
     """Radiance planes (r, g, b) for the sample planes, plus the [K, N]
@@ -1208,6 +1213,7 @@ def split_grads(flat, static: dict):
     return tuple(out)
 
 
+@profiling.spanned("launch.k2")
 def pathtrace_backward(tabs, planes, recs, g, seed, static: dict,
                        lanes: int | None = None):
     """The five table cotangents of sum(radiance * g) for the samples

@@ -1,78 +1,234 @@
-"""Observability: structured render metrics and profiler traces (the JAX
-package's utils/profiling.py).
+"""Observability of the port: one recorder of spans and counters, kept in
+memory on the profiler's clock, and `torch.profiler` traces of a run.
 
-The reference's only instrumentation is printf banners and external
-`time`(1) runs captured in src/time_notes (SURVEY §5). Here every render
-can report structured metrics (wall time per stage, rays per second,
-effective ray counts) and wrap itself in a `torch.profiler` trace of the
-host and, on the GPU, of every kernel (CUPTI), written as a Chrome trace.
+* Spans (`span`, `spanned`): the program's stages, each recorded with its
+  name, its parent span, its item (the root span it belongs to: a frame,
+  a training step) and its start and end in `time.time_ns()`, the clock
+  kineto converts its events to: a span lies a few microseconds outside
+  its `record_function` twin's event. Spans record only while a profiler
+  records
+  (`torch.autograd._profiler_enabled()`): off, a span site costs that one
+  check. The first span opened after a switch from off to on starts a
+  new take and clears the spans of the last one, so after a trace is
+  retaken the record holds the good take only. Each span also opens a
+  `record_function` of its name, so a `profiler_trace` shows the
+  program's stages above its kernels. The record is a ring of
+  SPAN_CAPACITY spans.
+* Host counters (`COUNTERS`, always on; plain numbers): each kernel
+  module's `LAUNCHES` dict of launch counts, under `launches` by the
+  module's name, and `scene.clusters_s`, the seconds spent in
+  `ops/accel.build_clusters`.
+* Device counters (`walk_counters`, only while spans record and a root
+  span of ROOT_SPANS is open, so a kernel timed alone under a profiler
+  runs as it does outside one): one int64 row per card of WALK_COUNTS for
+  each cluster-walking kernel of WALK_KERNELS (K3, K4, K7:
+  csrc/cluster_walk.cuh `count_walk`). A take zeroes the rows with a copy
+  from pinned memory (a Memcpy, not a kernel launch); `walk_totals` reads
+  them once, after the window.
+
+The stages recorded, by layer: `render` (the root of a frame), `k1.tables`
+and `k1.planes` (K1's host packing), `launch.k1` / `k2` / `k3` / `k4` /
+`k7` (a kernel wrapper's checks, operand packing, call and output
+checks), `chunk`, `wave` (its bounce or depth in `arg`) and `sort` (the
+wavefront glue), `train.step` (the root of a step), `train.loss`,
+`train.backward`, `train.mask` and `train.update` (the trainer).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import functools
 import os
 import time
-from dataclasses import dataclass, field
-from typing import Dict, Optional
+from collections import deque
+from typing import Optional
 
 import torch
 from torch.utils._pytree import tree_flatten
 
 TRACE_FILE = "trace.json"  # what `profiler_trace(dir)` writes under dir
+SPAN_CAPACITY = 1 << 20  # spans the record keeps, the newest
+ROOT_SPANS = ("render", "train.step")  # the items the device counters count
+WALK_KERNELS = ("k3", "k4", "k7")
+WALK_COUNTS = ("rays", "live", "pairs")
+WALK_ROW = len(WALK_KERNELS) * len(WALK_COUNTS)  # int64s per card
+
+_enabled = torch.autograd._profiler_enabled
 
 
-@dataclass
-class RenderStats:
-    """Accumulated metrics for one render/optimization run."""
+class Span:
+    """One recorded stage: name, its id and its parent's and item's ids
+    (None for a root; a root is its own item), start and end in ns of
+    `time.time_ns()` (end None while open), and `arg` (a wave's bounce or
+    depth, else None)."""
 
-    width: int = 0
-    height: int = 0
-    samples_per_pixel: int = 1
-    paths_per_sample: int = 1
-    max_depth: int = 1
-    stages: Dict[str, float] = field(default_factory=dict)
-    device: str = ""
+    __slots__ = ("name", "id", "parent", "item", "start_ns", "end_ns", "arg")
 
-    @property
-    def primary_rays(self) -> int:
-        return self.width * self.height * self.samples_per_pixel
+    def __init__(self, name, id, parent, item, start_ns, end_ns=None,
+                 arg=None):
+        self.name, self.id, self.parent, self.item = name, id, parent, item
+        self.start_ns, self.end_ns, self.arg = start_ns, end_ns, arg
 
-    @property
-    def effective_rays(self) -> int:
-        """Shade evaluations per frame: one primary + paths * (depth-1)
-        continuations per sample (models/integrator.py wavefront)."""
-        bounces = max(self.max_depth - 1, 0)
-        return self.primary_rays * (1 + self.paths_per_sample * bounces)
+    def __repr__(self):
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"item={self.item}, {self.start_ns}-{self.end_ns})")
 
-    def rays_per_sec(self, stage: str = "render") -> float:
-        dt = self.stages.get(stage, 0.0)
-        return self.effective_rays / dt if dt > 0 else 0.0
 
-    def to_json(self) -> str:
-        return json.dumps(
-            {
-                "resolution": [self.width, self.height],
-                "spp": self.samples_per_pixel,
-                "paths": self.paths_per_sample,
-                "max_depth": self.max_depth,
-                "effective_rays": self.effective_rays,
-                "stages_s": {k: round(v, 5) for k, v in self.stages.items()},
-                "rays_per_sec": round(self.rays_per_sec()),
-                "device": self.device,
-            }
-        )
+class Recorder:
+    """The spans of the current take, the open spans' stack (one for the
+    process: the stages of a frame or a step run one after another, and
+    autograd's device thread runs a backward while the caller waits in
+    it), and the device counters' rows, by card."""
+
+    def __init__(self):
+        self.spans: deque = deque(maxlen=SPAN_CAPACITY)
+        self.stack: list = []
+        self.on = False  # whether the last span site saw a profiler
+        self.take = 0  # takes started so far
+        self.next_id = 0
+        self.walk: dict = {}  # card -> [int64 tensor, take it was zeroed in]
+
+    def open(self, name, arg=None) -> Span:
+        if not self.on:
+            self.on = True
+            self.take += 1
+            self.spans.clear()
+            self.stack.clear()
+        parent = self.stack[-1] if self.stack else None
+        s = Span(name, self.next_id, None if parent is None else parent.id,
+                 self.next_id if parent is None else parent.item, 0,
+                 arg=arg)
+        self.next_id += 1
+        self.spans.append(s)
+        self.stack.append(s)
+        s.start_ns = time.time_ns()  # last: the twin's stamp comes next
+        return s
+
+    def close(self, s: Span) -> None:
+        s.end_ns = time.time_ns()
+        if s in self.stack:
+            self.stack.remove(s)
+
+    def walk_row(self, device: torch.device) -> torch.Tensor:
+        """This take's counter rows on `device`. The take's first use
+        zeroes them with a copy from host memory (pinned for a card: a
+        Memcpy, not a kernel launch)."""
+        key = (device.type, device.index)
+        if key not in self.walk:
+            self.walk[key] = [torch.empty(WALK_ROW, dtype=torch.int64,
+                                          device=device), 0]
+        entry = self.walk[key]
+        if entry[1] != self.take:
+            zeros = torch.zeros(WALK_ROW, dtype=torch.int64,
+                                pin_memory=device.type == "cuda")
+            entry[0].copy_(zeros, non_blocking=True)
+            entry[1] = self.take
+        return entry[0]
+
+    def walk_totals(self) -> Optional[dict]:
+        """{kernel: {count: total over the cards}} of this take's device
+        counters, or None when no kernel counted in it."""
+        rows = [t for t, take in self.walk.values() if take == self.take]
+        if not rows:
+            return None
+        sums = [sum(col) for col in zip(*(t.tolist() for t in rows))]
+        n = len(WALK_COUNTS)
+        return {k: dict(zip(WALK_COUNTS, sums[i * n:(i + 1) * n]))
+                for i, k in enumerate(WALK_KERNELS)}
+
+
+RECORDER = Recorder()
+
+
+class _On:
+    __slots__ = ("span", "fn")
+
+    def __init__(self, name, arg):
+        # the span's stamps lie right outside the twin's, so it holds it
+        self.fn = torch.profiler.record_function(
+            name, None if arg is None else str(arg))
+        self.span = RECORDER.open(name, arg)
+        self.fn.__enter__()
+
+    def __enter__(self):
+        return self.span
+
+    def __exit__(self, *exc):
+        self.fn.__exit__(*exc)
+        RECORDER.close(self.span)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, arg=None):
+    """A context for the stage `name` (`arg`: a number it carries, such as
+    a wave's bounce): recorded, with its record_function twin, while a
+    profiler records; else nothing but the check."""
+    if not _enabled():
+        RECORDER.on = False
+        return _OFF
+    return _On(name, arg)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is the span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def spans() -> list:
+    """The spans of the current take, in the order they opened."""
+    return list(RECORDER.spans)
+
+
+def walk_counters(device: torch.device, kernel: str) -> Optional[int]:
+    """The device address of `kernel`'s (of WALK_KERNELS) counter row on
+    `device` while spans record inside a root span of ROOT_SPANS (a frame
+    or a step), else None (the kernel then counts nothing)."""
+    if not _enabled():
+        return None
+    stack = RECORDER.stack
+    if not (stack and stack[0].name in ROOT_SPANS):
+        return None
+    row = RECORDER.walk_row(device)
+    return row.data_ptr() + row.element_size() * len(WALK_COUNTS) * (
+        WALK_KERNELS.index(kernel))
+
+
+def walk_totals() -> Optional[dict]:
+    """The device counters of the current take: {"k3" | "k4" | "k7":
+    {"rays", "live", "pairs": int}}, or None when no kernel counted."""
+    return RECORDER.walk_totals()
+
+
+# ---------------------------------------------------------------------------
+# Host counters
+# ---------------------------------------------------------------------------
+
+# `launches`: {kernel module's name: its LAUNCHES dict}
+COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {}}
 
 
 @contextlib.contextmanager
-def stage(stats: RenderStats, name: str):
-    """Time a stage; accumulates into stats.stages[name]."""
+def timed_counter(name: str):
+    """Adds the block's seconds to COUNTERS[name]."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        stats.stages[name] = stats.stages.get(name, 0.0) + time.perf_counter() - t0
+        COUNTERS[name] += time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Traces
+# ---------------------------------------------------------------------------
 
 
 def sync(x) -> None:
@@ -87,10 +243,9 @@ def sync(x) -> None:
 @contextlib.contextmanager
 def profiler_trace(log_dir: Optional[str]):
     """A torch.profiler trace (CPU, and CUDA where a GPU is visible) of the
-    block, written as a Chrome trace to log_dir/trace.json; a no-op when
-    log_dir is None. Ops carry their arguments' shapes and types
-    (record_shapes), from which utils/roofline.py `analyze_trace` counts
-    the bytes each kernel's op moves."""
+    block, written as a Chrome trace to log_dir/trace.json: the program's
+    stages (spans, as record_function ranges) above the host's ops and the
+    device's kernels. A no-op when log_dir is None."""
     if not log_dir:
         yield
         return
@@ -100,27 +255,8 @@ def profiler_trace(log_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities, record_shapes=True) as prof:
+    with profile(activities=activities) as prof:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
-
-
-def timed_render(render_fn, cfg, *args, trace_dir: Optional[str] = None):
-    """Run `render_fn(*args)`, returning (image, RenderStats); the stats'
-    device is the GPU's name, or "cpu" for the torch backend."""
-    cuda = cfg.resolved().backend == "cuda"
-    stats = RenderStats(
-        width=cfg.width,
-        height=cfg.height,
-        samples_per_pixel=cfg.samples_per_pixel,
-        paths_per_sample=cfg.paths_per_sample,
-        max_depth=cfg.max_depth,
-        device=torch.cuda.get_device_name() if cuda else "cpu",
-    )
-    with profiler_trace(trace_dir):
-        with stage(stats, "render"):
-            img = render_fn(*args)
-            sync(img)
-    return img, stats

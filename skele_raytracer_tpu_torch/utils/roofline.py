@@ -2,7 +2,7 @@
 the card's ceilings, and which ceiling binds (the JAX package's
 utils/roofline.py, with the H100's peaks in place of the TPU's).
 
-Three views:
+Two views:
 
 * the kernels' bounds (`k1_work`, `k2_work`, `mesh_work`, `occluded_work`,
   `k5_work`, `k6_work`, `fused_work`, `lab_work`): the least time the card could take
@@ -11,10 +11,6 @@ Three views:
   operations are counted per sample or per ray-triangle pair from the
   kernels' arithmetic (the chip machine has no hardware counters);
   chip_smoke.py reports each kernel's time beside its bound;
-* `analyze_trace(dir)`: the kernels of a `utils/profiling.profiler_trace`
-  Chrome trace, aggregated by name, with the bytes of the PyTorch op that
-  launched each one (from the shapes the trace records) and the rate
-  they imply against HBM's;
 * `frame_model(...)` and `sol_summary(...)`: an analytic cost of one
   Monte-Carlo frame (operations and the least HBM traffic) and the share
   of each ceiling a measured time reaches, from wall time and, where a
@@ -22,11 +18,6 @@ Three views:
 """
 
 from __future__ import annotations
-
-import json
-import os
-from collections import defaultdict
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -378,125 +369,6 @@ def lab_work(b, walked, *, kind: str, passes: int, group_c: int,
     nbytes = (T * lab.TILE_R * (40 + 8) + T * (C + C + 1 + 1) * 4
               + C * (block_rows * 4 * cs + aux_rows * cs) * 4 + C * 24)
     return roofline(fp32, sfu, 0, nbytes, mma)
-
-
-# ---------------------------------------------------------------------------
-# Trace analysis: kernels of a profiler_trace Chrome trace
-# ---------------------------------------------------------------------------
-
-SECTOR = 32  # bytes: HBM moves whole 32-byte sectors through L2
-
-# the element types torch.profiler's record_shapes names ("Input type")
-_DTYPE_BYTES = {
-    "double": 8, "long int": 8, "unsigned long": 8, "c10::complex<float>": 8,
-    "float": 4, "int": 4, "unsigned int": 4,
-    "c10::Half": 2, "c10::BFloat16": 2, "short int": 2, "unsigned short": 2,
-    "signed char": 1, "unsigned char": 1, "bool": 1,
-}
-
-
-def op_bytes(dims, types):
-    """(logical, physical) bytes of an op's tensor arguments, from the
-    "Input Dims" and "Input type" that a trace taken with record_shapes
-    holds for it: logical = elements x element size; physical = each
-    tensor rounded up to whole 32-byte sectors, what HBM moves for it.
-    Arguments that are not tensors (scalars, lists, None) count 0."""
-    logical = physical = 0
-    for shape, dtype in zip(dims, types):
-        size = _DTYPE_BYTES.get(dtype)
-        if size is None or not isinstance(shape, list):
-            continue
-        b = int(np.prod(shape)) * size if shape else size
-        logical += b
-        physical += -(-b // SECTOR) * SECTOR
-    return logical, physical
-
-
-@dataclass
-class OpStat:
-    """One kernel of a trace: its launches' total device time and count,
-    the PyTorch op that launched it ("" where none did), and the bytes of
-    that op's tensor arguments per launch (0 for the hand-written kernels,
-    launched through ctypes outside any aten op: their work is counted by
-    the `*_work` models)."""
-
-    name: str
-    op: str
-    total_s: float
-    count: int
-    logical_bytes: int
-    physical_bytes: int
-
-    @property
-    def logical_gbps(self):
-        return self.logical_bytes * self.count / self.total_s / 1e9
-
-    @property
-    def physical_gbps(self):
-        return self.physical_bytes * self.count / self.total_s / 1e9
-
-    @property
-    def sol_pct(self):
-        """% of HBM's rate, charging whole sectors (physical bytes)."""
-        return 100.0 * self.physical_gbps * 1e9 / PEAKS["hbm"]
-
-
-def _load_trace_events(trace_dir: str):
-    from skele_raytracer_tpu_torch.utils.profiling import TRACE_FILE
-
-    path = (os.path.join(trace_dir, TRACE_FILE) if os.path.isdir(trace_dir)
-            else trace_dir)
-    with open(path) as f:
-        return json.load(f)["traceEvents"]
-
-
-def analyze_trace(trace_dir: str, min_total_s: float = 0.0):
-    """The device kernels ("cat": "kernel") of the Chrome trace that
-    `utils/profiling.profiler_trace(trace_dir)` wrote (or of a trace file),
-    aggregated by name into OpStats sorted by total time, descending. Each
-    kernel's bytes come from the aten op that launched it (linked by
-    "External id"; `op_bytes`)."""
-    events = _load_trace_events(trace_dir)
-    ops = {e["args"]["External id"]: e for e in events
-           if e.get("ph") == "X" and e.get("cat") == "cpu_op"
-           and "External id" in e.get("args", {})}
-    agg = defaultdict(lambda: [0.0, 0, None])
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "kernel":
-            continue
-        a = agg[e.get("name", "?")]
-        a[0] += e.get("dur", 0) / 1e6
-        a[1] += 1
-        if a[2] is None:
-            a[2] = ops.get(e.get("args", {}).get("External id"))
-    out = []
-    for name, (total, count, op) in agg.items():
-        if total < min_total_s:
-            continue
-        aten = op is not None and op["name"].startswith("aten::")
-        lo, ph = (op_bytes(op["args"].get("Input Dims", []),
-                           op["args"].get("Input type", []))
-                  if aten else (0, 0))
-        out.append(OpStat(name, op["name"] if op else "", total, count, lo,
-                          ph))
-    out.sort(key=lambda s: -s.total_s)
-    return out
-
-
-def print_report(stats, top: int = 15, total_s: float | None = None):
-    """A table of the `top` kernels: time, share of device time, logical
-    and physical rates, % of HBM's; with `total_s` (wall seconds of the
-    traced run) the device's busy share."""
-    all_s = sum(s.total_s for s in stats)
-    print(f"{'kernel':<44} {'time':>9} {'%dev':>5} {'GB/s log':>9} "
-          f"{'GB/s phys':>9} {'SoL%':>5}")
-    for s in stats[:top]:
-        print(f"{s.name[:44]:<44} {s.total_s * 1e3:8.3f}ms "
-              f"{100 * s.total_s / all_s:4.1f}% {s.logical_gbps:9.1f} "
-              f"{s.physical_gbps:9.1f} {s.sol_pct:5.1f}")
-    if total_s:
-        print(f"device busy {all_s:.4f}s / wall {total_s:.4f}s "
-              f"({100 * all_s / total_s:.0f}% busy)")
 
 
 # ---------------------------------------------------------------------------

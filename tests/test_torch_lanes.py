@@ -1,6 +1,7 @@
 """The lane split of the cluster-culled kernels K3 (csrc/culled.cu
-`nearest_kernel<G>`), K4 (csrc/culled.cu `occluded_kernel<G>`) and K7
-(csrc/megakernel.cu `fused_kernel<G, shadows>`), on the CPU.
+`nearest_kernel<G, count>`), K4 (csrc/culled.cu `occluded_kernel<G,
+count>`) and K7 (csrc/megakernel.cu `fused_kernel<G, shadows, count>`),
+on the CPU.
 
 On the card G lanes carry one ray: each tests every G-th record of a staged
 cluster (mesh_math.cuh `lane_nearest`, fused_math.cuh `lane_blocks`) and

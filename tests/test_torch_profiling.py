@@ -1,9 +1,8 @@
-"""The port's render metrics and profiler traces (utils/profiling.py) on
-the CPU."""
+"""The port's profiler traces (utils/profiling.py `profiler_trace`, behind
+`cli --profile`) on the CPU."""
 
 import json
 import os
-import time
 
 import torch
 
@@ -14,50 +13,26 @@ from skele_raytracer_tpu_torch.utils import profiling
 from tests.conftest import TEST_SCN
 
 
-def test_render_stats_to_json():
-    stats = profiling.RenderStats(width=4, height=3, samples_per_pixel=2,
-                                  paths_per_sample=3, max_depth=3,
-                                  stages={"render": 0.5}, device="cpu")
-    assert stats.primary_rays == 24
-    assert stats.effective_rays == 24 * (1 + 3 * 2)
-    out = json.loads(stats.to_json())
-    assert out == {"resolution": [4, 3], "spp": 2, "paths": 3,
-                   "max_depth": 3, "effective_rays": 168,
-                   "stages_s": {"render": 0.5}, "rays_per_sec": 336,
-                   "device": "cpu"}
-    assert profiling.RenderStats().rays_per_sec() == 0.0
-
-
-def test_stage_accumulates():
-    stats = profiling.RenderStats()
-    for _ in range(2):
-        with profiling.stage(stats, "parse"):
-            time.sleep(0.01)
-    assert stats.stages["parse"] >= 0.02
-    try:
-        with profiling.stage(stats, "fail"):
-            raise ValueError
-    except ValueError:
-        pass
-    assert "fail" in stats.stages  # timed even when the stage raises
-
-
-def test_timed_render_and_trace(tmp_path):
-    cfg = RenderConfig(width=8, height=6, use_shadows=True, backend="torch")
-    scene = parse_scene_text(TEST_SCN).to_scene(cfg.quirks)
-    img, stats = profiling.timed_render(render, cfg, scene, cfg, 0,
-                                        trace_dir=str(tmp_path / "prof"))
-    assert tuple(img.shape) == (6, 8, 3)
-    assert stats.device == "cpu" and stats.stages["render"] > 0
-    assert torch.equal(img, render(scene, cfg, 0))
-    trace = tmp_path / "prof" / profiling.TRACE_FILE
-    events = json.loads(trace.read_text())["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
-    profiling.sync(img)  # a CPU tensor: nothing to wait for
-    profiling.sync({"a": [img]})
-
-
 def test_profiler_trace_off_writes_nothing(tmp_path):
     with profiling.profiler_trace(None):
         torch.ones(2).sum()
     assert os.listdir(tmp_path) == []
+
+
+def test_profiler_trace_holds_the_program_stages(tmp_path):
+    """A trace of a CPU render (K1's plain version) holds the program's
+    stages as annotations beside PyTorch's ops, each stage once."""
+    cfg = RenderConfig(width=8, height=6, use_shadows=True, backend="torch")
+    scene = parse_scene_text(TEST_SCN).to_scene(cfg.quirks)
+    d = str(tmp_path / "prof")
+    with profiling.profiler_trace(d):
+        img = render(scene, cfg, 0)
+        profiling.sync(img)
+    assert torch.equal(img, render(scene, cfg, 0))
+    events = json.loads((tmp_path / "prof" / profiling.TRACE_FILE
+                         ).read_text())["traceEvents"]
+    stages = sorted(e["name"] for e in events
+                    if e.get("cat") == "user_annotation")
+    assert stages == ["k1.planes", "k1.tables", "launch.k1", "render"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert not any(e.get("args", {}).get("Input Dims") for e in events)

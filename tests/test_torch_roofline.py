@@ -1,39 +1,15 @@
-"""utils/roofline.py on the CPU: tests/test_roofline.py's four cases on the
-port (op bytes with 32-byte sectors in place of the TPU's (8, 128) tiles,
-the frame model, the bound's flip), the trace analysis on a synthetic
-trace and on a real `profiler_trace`, and the kernels' bounds pinned to
-the values chip_smoke.py computed with its own copy of these functions
-before they moved here (tolerance 5e-7 ms: the six printed digits)."""
+"""utils/roofline.py on the CPU: tests/test_roofline.py's cases of the
+frame model and the bound's flip on the port, and the kernels' bounds
+pinned to the values chip_smoke.py computed with its own copy of these
+functions before they moved here (tolerance 5e-7 ms: the six printed
+digits)."""
 
-import json
-import os
-
-import numpy as np
 import pytest
 
 import chip_smoke
 from skele_raytracer_tpu_torch.config import CLEAN, PARITY
-from skele_raytracer_tpu_torch.models.renderer import render
 from skele_raytracer_tpu_torch.ops.cuda import pathtrace as pt
-from skele_raytracer_tpu_torch.utils import profiling, roofline
-
-
-def test_op_bytes_sectors():
-    # f32[1000,3] and f32[1000,16] are whole sectors; f16[5] (10 B) is one
-    lo, ph = roofline.op_bytes([[1000, 3], [1000, 16], [5]],
-                               ["float", "float", "c10::Half"])
-    assert lo == 1000 * 3 * 4 + 1000 * 16 * 4 + 10
-    assert ph == 1000 * 3 * 4 + 1000 * 16 * 4 + 32
-
-
-def test_op_bytes_scalar_and_1d():
-    # a 0-d tensor is one element in a sector; scalars, lists and absent
-    # arguments are not tensors and count 0
-    lo, ph = roofline.op_bytes([[], [131072], [], [], []],
-                               ["float", "float", "Scalar", "ScalarList", ""])
-    assert lo == 4 + 131072 * 4
-    assert ph == 32 + 131072 * 4
-    assert roofline.op_bytes([[7]], ["long int"]) == (56, 64)
+from skele_raytracer_tpu_torch.utils import roofline
 
 
 def test_frame_model_headline_magnitudes():
@@ -91,74 +67,3 @@ def test_bounds_pinned_to_chip_smoke_values():
     assert not hasattr(chip_smoke, "FP32_PEAK")
     m = roofline.k1_model(*_headline_static(PARITY))
     assert set(m) == {"flops", "sfu", "int32", "hbm_bytes_min"}
-
-
-def _trace(tmp_path, events):
-    d = tmp_path / "prof"
-    d.mkdir()
-    (d / profiling.TRACE_FILE).write_text(json.dumps(
-        {"traceEvents": events}))
-    return str(d)
-
-
-def test_analyze_trace_links_kernels_to_their_ops(tmp_path):
-    add = {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 0,
-           "dur": 5, "args": {"External id": 7,
-                              "Input Dims": [[1000, 3], [1000, 3], []],
-                              "Input type": ["float", "float", "Scalar"]}}
-    fn = {"ph": "X", "cat": "cpu_op", "name": "_PathTrace", "ts": 0,
-          "dur": 5, "args": {"External id": 9, "Input Dims": [[64]],
-                             "Input type": ["float"]}}
-    kern = lambda name, ext, dur: {"ph": "X", "cat": "kernel", "name": name,
-                                   "ts": 1, "dur": dur,
-                                   "args": {"External id": ext}}
-    events = [add, fn, kern("elementwise_kernel", 7, 10.0),
-              kern("elementwise_kernel", 7, 14.0),
-              kern("pathtrace_kernel<false, false, 4>", 9, 1000.0),
-              kern("orphan_kernel", 99, 1.0),
-              {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
-               "dur": 3, "args": {"External id": 7}}]
-    stats = roofline.analyze_trace(_trace(tmp_path, events))
-    assert [s.name for s in stats] == ["pathtrace_kernel<false, false, 4>",
-                                       "elementwise_kernel", "orphan_kernel"]
-    pk, ew, orphan = stats
-    # a kernel launched outside any aten op (ctypes) counts no bytes
-    assert (pk.op, pk.count, pk.logical_bytes) == ("_PathTrace", 1, 0)
-    assert (orphan.op, orphan.physical_bytes) == ("", 0)
-    assert ew.op == "aten::add" and ew.count == 2
-    assert ew.total_s == pytest.approx(24e-6)
-    assert ew.logical_bytes == ew.physical_bytes == 2 * 12000
-    assert ew.logical_gbps == pytest.approx(2 * 24000 / 24e-6 / 1e9)
-    assert ew.sol_pct == pytest.approx(100 * ew.physical_gbps * 1e9
-                                       / roofline.PEAKS["hbm"])
-    trace = os.path.join(tmp_path, "prof", profiling.TRACE_FILE)
-    assert [s.name for s in roofline.analyze_trace(trace, min_total_s=1e-4)
-            ] == ["pathtrace_kernel<false, false, 4>"]
-
-
-def test_profiler_trace_records_shapes_for_analyze_trace(tmp_path, capsys):
-    """A real trace of a CPU render: its ops carry their arguments' shapes
-    (record_shapes), and the CPU launched no device kernel."""
-    from tests.conftest import TEST_SCN
-    from skele_raytracer_tpu_torch.config import RenderConfig
-    from skele_raytracer_tpu_torch.scene.parser import parse_scene_text
-
-    cfg = RenderConfig(width=8, height=6, backend="torch")
-    scene = parse_scene_text(TEST_SCN).to_scene(cfg.quirks)
-    d = str(tmp_path / "prof")
-    with profiling.profiler_trace(d):
-        render(scene, cfg, 0)
-    with open(os.path.join(d, profiling.TRACE_FILE)) as f:
-        events = json.load(f)["traceEvents"]
-    shaped = [e for e in events if e.get("cat") == "cpu_op"
-              and any(e["args"].get("Input Dims", []))]
-    assert shaped, "the trace recorded no argument shapes"
-    assert max(roofline.op_bytes(e["args"]["Input Dims"],
-                                 e["args"]["Input type"])[0]
-               for e in shaped) > 0
-    assert roofline.analyze_trace(d) == []
-    stats = [roofline.OpStat("k", "aten::add", 2e-3, 4, 1 << 20, 1 << 20)]
-    roofline.print_report(stats, total_s=4e-3)
-    out = capsys.readouterr().out
-    assert "k " in out and "50% busy" in out
-    assert np.isfinite(stats[0].sol_pct)
