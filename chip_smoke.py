@@ -45,6 +45,12 @@ Phases, in order; any failure raises and exits nonzero:
    at passes 3, which every such instance must hold, with the registers
    and spills of every instance of the split walk (L1, L2, L3, L5) and L6
    side by side.
+   `[graph]` (`phase_graph`, ~30 s): one frame of dragon 640x480 clean
+   gillum 16 depth 2 shadows per route (split, then fused), replayed
+   chunk by chunk from CUDA graphs (models/graphs.py), bitwise equal to
+   the same frame through `render_ids` chunk by chunk with no graph
+   (`eager_frame`), with the capture's time, the share of the frame's
+   chunks a replay served and both frames' times.
 3. kernel vs plain on the card: K1 on each of KERNEL_CASES (at most 0.5%
    of values off by more than 1e-4, frame means within 5e-4: the
    tolerance of tests/test_pathtrace.py), its records bitwise, and K2
@@ -625,13 +631,18 @@ class ParentKernels:
         for ops/cuda/pathtrace.py, K5's for ops/cuda/intersect.py, K7's for
         ops/cuda/megakernel.py, K3's and K4's for ops/cuda/culled.py, the
         lab's for ops/cuda/lab.py); `mod` None: every module's."""
+        from skele_raytracer_tpu_torch.models import graphs
+
         mods = list(self.libs) if mod is None else [mod]
         saved = [m._lib for m in mods]
+        # the wavefront's CUDA graphs hold the kernels bound at capture
+        graphs.CHUNK_GRAPHS.clear()
         for m in mods:
             m._lib = self.libs[m]
         try:
             return fn()
         finally:
+            graphs.CHUNK_GRAPHS.clear()
             for m, lib in zip(mods, saved):
                 m._lib = lib
 
@@ -832,6 +843,86 @@ def time_redesigned(name, label, n, smi, kernel, tag, plain, work, parent,
           + ", ".join(f"{g}: {dev[tag(g)]:.4f}" for g in lanes)
           + f" (the launcher picks {lanes_for(n)})")
     return ms, plain_ms, b_ms, b_by, old_ms
+
+
+def eager_frame(scene, cfg, seed):
+    """The frame `render` gives, through `render_ids` chunk by chunk with
+    no CUDA graph: the wavefront's eager path."""
+    from skele_raytracer_tpu_torch.models.renderer import (
+        _chunk_samples,
+        render_ids,
+    )
+
+    cfg = cfg.resolved()
+    H, W, spp = cfg.height, cfg.width, cfg.samples_per_pixel
+    ids = torch.arange(H * W * spp, dtype=torch.int64, device=cfg.device)
+    chunk = _chunk_samples(cfg)
+    with torch.no_grad():
+        rad = torch.cat([render_ids(scene, cfg, seed, ids[i:i + chunk])
+                         for i in range(0, ids.shape[0], chunk)])
+    return rad.reshape(H, W, spp, 3).mean(dim=2)
+
+
+def phase_graph(smi):
+    """[graph]: dragon 640x480 clean gillum 16 depth 2 shadows, one frame
+    per route, replayed from CUDA graphs, against `eager_frame` bitwise;
+    the capture's time (the graph's capture alone, synchronized), the
+    share of chunks a replay served, and a replayed frame's and an eager
+    frame's time (median of 3 each, CUDA events)."""
+    from skele_raytracer_tpu_torch.config import CLEAN, RenderConfig
+    from skele_raytracer_tpu_torch.models import graphs
+    from skele_raytracer_tpu_torch.models.renderer import render
+
+    scene = parsed_scene("dragon.scn", CLEAN)
+    counts = graphs.COUNTS
+    capture = graphs.CHUNK_GRAPHS._capture
+    took = []
+
+    def timed_capture(*args):
+        t0 = time.perf_counter()
+        capture(*args)
+        torch.cuda.synchronize()
+        took.append(1e3 * (time.perf_counter() - t0))
+
+    graphs.CHUNK_GRAPHS._capture = timed_capture
+    try:
+        for route in ("split", "fused"):
+            cfg = RenderConfig(width=640, height=480, quirks=CLEAN,
+                               monte_carlo=True, num_paths=16, max_depth=2,
+                               use_shadows=True, backend="cuda",
+                               fused_megakernel=route == "fused")
+            before = dict(counts)
+            first, first_ms = timed(lambda: render(scene, cfg, seed=11))
+            delta = {k: counts[k] - before[k] for k in counts}
+            check(delta["captures"] == 1 and delta["replays"] > 0,
+                  f"[graph] {route}: the first frame did not capture and "
+                  f"replay: {delta}")
+            before = dict(counts)
+            img = render(scene, cfg, seed=7)
+            torch.cuda.synchronize()
+            replayed = {k: counts[k] - before[k] for k in counts}
+            want = eager_frame(scene, cfg, 7)
+            check(torch.equal(img, want) and torch.equal(
+                first, eager_frame(scene, cfg, 11)),
+                f"[graph] {route}: a replayed frame differs from the eager "
+                f"frame")
+            share = replayed["replays"] / (replayed["replays"]
+                                           + replayed["eager"])
+            check(share == 1.0, f"[graph] {route}: {replayed}")
+            r_ms = statistics.median(
+                cuda_ms(lambda: render(scene, cfg, seed=7), 3))
+            e_ms = statistics.median(
+                cuda_ms(lambda: eager_frame(scene, cfg, 7), 3))
+            print(f"[graph] dragon 640x480 clean gillum16 depth2 shadows, "
+                  f"{route} route on {smi}: replayed frame bitwise the "
+                  f"eager frame (seeds 7 and 11); capture {took[-1]:.1f} ms "
+                  f"(first frame {first_ms:.1f} ms: one eager chunk, the "
+                  f"capture, {delta['replays']} replays); replay share "
+                  f"{100 * share:.1f}% of a frame's chunks "
+                  f"({replayed}); frame {r_ms:.2f} ms replayed, "
+                  f"{e_ms:.2f} ms eager (median of 3)")
+    finally:
+        del graphs.CHUNK_GRAPHS._capture
 
 
 def phase_device():
@@ -3993,6 +4084,7 @@ def main() -> int:
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
+    phase_graph(smi)
     parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
     phase_sass(parent)
     phase_sass_lab(parent)

@@ -14,8 +14,10 @@ Two paths, chosen as in the JAX package (`render_ids_chunked`):
   `_chunk_samples` ids -> camera rays -> models/integrator.py, whose
   triangle scans go to the culled kernels K3/K4 and the brute-force kernel
   K5, or, with `RenderConfig.fused_megakernel` on a clean mesh scene, to
-  the fused kernel K7 (one launch per wave). The loop is eager, chunk by
-  chunk; the last chunk is cut, not padded.
+  the fused kernel K7 (one launch per wave). On the card without
+  autograd each full chunk replays a CUDA graph of the whole chunk
+  (models/graphs.py); otherwise the loop is eager, chunk by chunk. The
+  last chunk is cut, not padded, and a cut chunk runs eagerly.
 
 Backend "cuda" runs the hand-written kernels on the GPU; "torch" runs
 their plain PyTorch versions on the CPU. `render_radiance` (and the
@@ -33,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from skele_raytracer_tpu_torch.config import RenderConfig
+from skele_raytracer_tpu_torch.models import graphs
 from skele_raytracer_tpu_torch.models.integrator import integrate
 from skele_raytracer_tpu_torch.ops.camera import rays_for_ids
 from skele_raytracer_tpu_torch.ops.cuda import pathtrace
@@ -67,19 +70,29 @@ def _needs_grad(scene) -> bool:
 
 def render_ids_wavefront(scene, cfg: RenderConfig, seed, sample_ids):
     """Radiance [N, 3] through the chunked wavefront, chunk by chunk.
-    Under autograd each chunk is recomputed in the backward pass
-    (`torch.utils.checkpoint`, as `jax.checkpoint` in the JAX package's
-    render_ids_chunked_jnp), so a frame holds one chunk's intermediates at
-    a time. The RNG is counter-based and the kernels are deterministic
-    (K7's per-ray answers depend on neither the ray order nor the tiling,
-    and it saves its own hit structure for the replay), so the recompute
-    sees the same hits."""
+    On the card without autograd, a full chunk replays its CUDA graph
+    (models/graphs.py: captured on the first chunk of its shape, the same
+    kernels in the same order). Under autograd each chunk is recomputed in
+    the backward pass (`torch.utils.checkpoint`, as `jax.checkpoint` in the
+    JAX package's render_ids_chunked_jnp), so a frame holds one chunk's
+    intermediates at a time. The RNG is counter-based and the kernels are
+    deterministic (K7's per-ray answers depend on neither the ray order
+    nor the tiling, and it saves its own hit structure for the replay), so
+    the recompute sees the same hits."""
     chunk = _chunk_samples(cfg)
     grad = _needs_grad(scene)
+    key = None
     out = []
     for i in range(0, sample_ids.shape[0], chunk):
         ids = sample_ids[i:i + chunk]
         with profiling.span("chunk"):
+            if graphs.replays(ids.device, grad, ids.shape[0], chunk):
+                if key is None:
+                    key = graphs.ChunkGraphs.key(scene, cfg, ids)
+                out.append(graphs.CHUNK_GRAPHS.run(render_ids, key, scene,
+                                                   cfg, seed, ids))
+                continue
+            graphs.COUNTS["eager"] += 1
             if grad:
                 out.append(checkpoint(render_ids, scene, cfg, seed, ids,
                                       use_reentrant=False))

@@ -11,7 +11,12 @@ bit those of the JAX package and of the CUDA kernel
 
 torch has no add and no shifts on uint32 CPU tensors, so the generator
 computes on int64 tensors holding values in [0, 2^32), masked after each
-add and shift (a 32-bit rotate of such a value fits in 61 bits).
+add and shift (a 32-bit rotate of such a value fits in 61 bits). Key and
+counter words given as Python ints stay scalars of the tensor ops (no
+tensor is built from them, so no host-to-device copy). The seed may also
+be an int64 tensor (a 0-d device tensor: the static input of a chunk's
+CUDA graph, models/graphs.py), whose key word then flows on the device;
+the draws are the same bits either way.
 """
 
 from __future__ import annotations
@@ -35,19 +40,20 @@ _GOLDEN = 0x9E3779B9
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
 
-def _u32(v, like: torch.Tensor) -> torch.Tensor:
-    """A uint32 value (int, numpy or tensor) as an int64 tensor."""
+def _u32(v, like: torch.Tensor):
+    """A uint32 value: a tensor as an int64 tensor on like's device, an int
+    (or numpy integer) as a Python int, each masked to 32 bits."""
     if isinstance(v, torch.Tensor):
         return v.to(device=like.device, dtype=torch.int64) & _MASK
-    return torch.tensor(int(v) & _MASK, dtype=torch.int64, device=like.device)
+    return int(v) & _MASK
 
 
 def threefry2x32(k0, k1, x0: torch.Tensor, x1):
     """Threefry-2x32, 20 rounds (the algorithm jax.random uses).
 
     k0, k1: uint32 key words (ints or tensors broadcastable to x0).
-    x0, x1: uint32 counter words; x0 a tensor. Returns (y0, y1) as int64
-    tensors holding the uint32 words.
+    x0, x1: uint32 counter words; x0 a tensor, x1 an int or a tensor.
+    Returns (y0, y1) as int64 tensors holding the uint32 words.
     """
     k0, k1, x1 = _u32(k0, x0), _u32(k1, x0), _u32(x1, x0)
     x0 = x0.to(torch.int64) & _MASK
@@ -68,9 +74,11 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1):
     return x0, x1
 
 
-def _stream_key_words(seed, bounce, purpose) -> tuple[int, int]:
-    """(k0, k1) uint32 key words for the (seed, bounce, purpose) stream."""
-    k0 = int(seed) & _MASK
+def _stream_key_words(seed, bounce, purpose):
+    """(k0, k1) uint32 key words for the (seed, bounce, purpose) stream:
+    k0 the seed's (an int, or an int64 tensor as it is: `threefry2x32`
+    masks it), k1 an int."""
+    k0 = seed if isinstance(seed, torch.Tensor) else int(seed) & _MASK
     k1 = (int(bounce) * _GOLDEN + int(purpose)) & _MASK
     return k0, k1
 
@@ -81,7 +89,8 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(seed, ray_id: torch.Tensor, bounce, purpose, shape=()):
-    """U[0,1) draws, shape [len(ray_id), *shape].
+    """U[0,1) draws, shape [len(ray_id), *shape]. `seed`: an int, or a 0-d
+    int64 tensor on ray_id's device (the same draws).
 
     Draw i comes from word i%2 of threefry counter (ray_id, i//2), the
     JAX package's two-word mapping (ops/sampling.py:80-106 there).

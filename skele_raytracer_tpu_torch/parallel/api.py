@@ -12,7 +12,8 @@ over a ("tiles", "samples") mesh of devices, which may span processes of a
   rows are dropped, and the loss masks them by `id < n_total`). This
   process holds shards rank * n_local .. rank * n_local + n_local - 1, in
   the order of its devices: the JAX package's P(("tiles", "samples"));
-* the scene is replicated: every shard reads it through `scene.to(d)`;
+* the scene is replicated: every shard reads it on its own device
+  (`replicate_scene`);
 * each shard runs the single-device renderer, `render_ids_chunked`, on its
   own device and unchanged: sharding composes around it. The forward pass
   communicates nothing;
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, is_dataclass
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -291,10 +292,54 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, seed, target,
     return loss, {name: g for (name, _), g in zip(wrt, grads)}
 
 
+# {device: the scene's resident copy there}, for frames without autograd
+_RESIDENT: dict = {}
+
+
 def replicate_scene(scene, mesh: Mesh) -> dict:
     """{device: the scene on it} for each distinct device of the mesh: the
     analog of the CUDA build's one-time scene upload, made once per frame
-    or step rather than once per shard. `scene.to(d)` is differentiable,
-    so autograd sums the shards' gradients onto the caller's leaves; on
-    the scene's own device it is the scene itself."""
-    return {d: scene.to(d) for d in dict.fromkeys(mesh.devices)}
+    or step rather than once per shard; on the scene's own device it is
+    the scene itself. Under autograd (a leaf that needs a gradient) it is
+    `scene.to(d)`, which is differentiable, so autograd sums the shards'
+    gradients onto the caller's leaves. Otherwise each other device keeps
+    one resident copy, into which every frame copies the scene's values
+    while its layout stays: the copy's tensors keep their addresses, on
+    which the wavefront's CUDA graphs are keyed (models/graphs.py)."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in scene.tensors())
+    return {d: scene.to(d) if grad else _resident(scene, d)
+            for d in dict.fromkeys(mesh.devices)}
+
+
+def _resident(scene, dev: torch.device):
+    """The scene on `dev`: itself where it is there, else `dev`'s resident
+    copy with the scene's values copied in (a new copy where the layout
+    differs)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if all(t.device == dev for t in scene.tensors()):
+        return scene
+    copy = _RESIDENT.get(dev)
+    with torch.no_grad():
+        if copy is None or _layout(copy) != _layout(scene):
+            copy = _RESIDENT[dev] = scene.to(dev)
+        else:
+            for dst, src in zip(copy.tensors(), scene.tensors()):
+                dst.copy_(src)
+    return copy
+
+
+def _layout(obj) -> tuple:
+    """A scene's layout: each tensor leaf's shape and dtype, and every
+    other field's value, depth first."""
+    out = []
+    for f in fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append((tuple(v.shape), v.dtype))
+        elif is_dataclass(v):
+            out.append(_layout(v))
+        else:
+            out.append(v)
+    return tuple(out)

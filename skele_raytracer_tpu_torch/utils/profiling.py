@@ -16,8 +16,11 @@ memory on the profiler's clock, and `torch.profiler` traces of a run.
   SPAN_CAPACITY spans.
 * Host counters (`COUNTERS`, always on; plain numbers): each kernel
   module's `LAUNCHES` dict of launch counts, under `launches` by the
-  module's name, and `scene.clusters_s`, the seconds spent in
-  `ops/accel.build_clusters`.
+  module's name (a replayed CUDA graph adds what its capture launched),
+  `scene.clusters_s`, the seconds spent in `ops/accel.build_clusters`,
+  and `wavefront.graph`, the wavefront's chunks by how they ran
+  (models/graphs.py): `captures` (graphs captured), `replays` (chunks
+  served by a replay) and `eager` (every other chunk).
 * Device counters (`walk_counters`, only while spans record and a root
   span of ROOT_SPANS is open, so a kernel timed alone under a profiler
   runs as it does outside one): one int64 row per card of WALK_COUNTS for
@@ -31,7 +34,11 @@ and `k1.planes` (K1's host packing), `launch.k1` / `k2` / `k3` / `k4` /
 `k7` (a kernel wrapper's checks, operand packing, call and output
 checks), `chunk`, `wave` (its bounce or depth in `arg`) and `sort` (the
 wavefront glue), `train.step` (the root of a step), `train.loss`,
-`train.backward`, `train.mask` and `train.update` (the trainer).
+`train.backward`, `train.mask` and `train.update` (the trainer). Where
+a wavefront chunk replays a CUDA graph, the spans inside it (`wave`,
+`sort`, `launch.k3` / `k4` / `k7`) open only while the graph is
+captured; `chunk` opens around each replay and `launch.graph` around
+the replay's launch.
 """
 
 from __future__ import annotations
@@ -212,8 +219,11 @@ def walk_totals() -> Optional[dict]:
 # Host counters
 # ---------------------------------------------------------------------------
 
-# `launches`: {kernel module's name: its LAUNCHES dict}
-COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {}}
+# `launches`: {kernel module's name: its LAUNCHES dict}; `wavefront.graph`:
+# the wavefront's chunks, counted by models/graphs.py
+COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {},
+                  "wavefront.graph": {"captures": 0, "replays": 0,
+                                      "eager": 0}}
 
 
 @contextlib.contextmanager

@@ -88,6 +88,25 @@ def test_uniform_bitwise(shape):
                 np.testing.assert_array_equal(t, j)
 
 
+@pytest.mark.parametrize("shape", [(), (2,), (3,), (2, 4)],
+                         ids=["scalar", "pair", "odd", "matrix"])
+def test_uniform_tensor_seed_bitwise(shape):
+    """A seed given as a 0-d int64 tensor (the static input of a chunk's
+    CUDA graph, models/graphs.py) draws the bits of the same int seed, for
+    every purpose and bounce; a tensor past 2^32 is masked as an int is."""
+    ids_t = torch.from_numpy(IDS.astype(np.int64))
+    for seed in (0, 7, 2**32 - 1, 2**32 + 5):
+        seed_t = torch.tensor(seed, dtype=torch.int64)
+        for bounce in (0, 1, 5):
+            for purpose in (t_sampling.PURPOSE_JITTER,
+                            t_sampling.PURPOSE_PATH, t_sampling.PURPOSE_FOG):
+                want = t_sampling.uniform(seed, ids_t, bounce, purpose, shape)
+                got = t_sampling.uniform(seed_t, ids_t, bounce, purpose,
+                                         shape)
+                assert got.dtype == torch.float32
+                assert torch.equal(got, want)
+
+
 def _normals(n=512):
     rng = np.random.default_rng(2)
     v = rng.normal(size=(n, 3)).astype(np.float32)

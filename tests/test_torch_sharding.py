@@ -15,6 +15,7 @@ within atol 1e-5, rtol 1e-3 of `jax.value_and_grad(train.full_loss)` with
 backend "jnp".
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -236,6 +237,28 @@ def test_replicate_scene_one_copy_per_device(scene):
     copies = replicate_scene(scene, cpu_mesh(4))
     assert list(copies) == [torch.device("cpu")]
     assert copies[torch.device("cpu")].spheres.center is scene.spheres.center
+
+
+def test_replicate_scene_keeps_a_resident_copy(scene):
+    """Without autograd a device other than the scene's keeps one copy,
+    its tensors the same from frame to frame (the CUDA graphs key on their
+    addresses); a scene of another layout gets a new copy; under autograd
+    every call copies anew (`scene.to`, differentiable)."""
+    meta = torch.device("meta")
+    mesh = make_mesh([meta, meta])
+    with torch.no_grad():
+        first = replicate_scene(scene, mesh)[meta]
+        again = replicate_scene(scene, mesh)[meta]
+    assert again is first
+    assert all(t.device == meta for t in first.tensors())
+    grown = dataclasses.replace(scene, ambient=torch.zeros(4))
+    with torch.no_grad():
+        other = replicate_scene(grown, mesh)[meta]
+    assert other is not first and other.ambient.shape == (4,)
+    leaf = dataclasses.replace(
+        scene, ambient=scene.ambient.clone().requires_grad_(True))
+    a, b = (replicate_scene(leaf, mesh)[meta] for _ in range(2))
+    assert a is not b and a.ambient.requires_grad
 
 
 def test_pad_ids_and_target_rows():

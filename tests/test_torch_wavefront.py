@@ -30,9 +30,13 @@ from skele_raytracer_tpu.scene.parser import parse_scene as j_parse
 from skele_raytracer_tpu.scene.parser import parse_scene_text as j_parse_text
 from skele_raytracer_tpu.scene.types import make_scene as j_make_scene
 from skele_raytracer_tpu_torch.config import CLEAN, PARITY, RenderConfig
-from skele_raytracer_tpu_torch.models import integrator
+from skele_raytracer_tpu_torch.models import graphs, integrator
+from skele_raytracer_tpu_torch.models.renderer import (
+    _chunk_samples,
+    render_ids_wavefront,
+)
 from skele_raytracer_tpu_torch.ops import geometry, shading
-from skele_raytracer_tpu_torch.ops.cuda import culled
+from skele_raytracer_tpu_torch.ops.cuda import _build, culled
 from skele_raytracer_tpu_torch.scene.convert import (
     scene_from_numpy,
     scene_to_numpy,
@@ -243,3 +247,44 @@ def test_geometry_primitives_match_jax(mode):
         np.asarray(j_geometry.offset_origin(jo, jnp.asarray(n))), atol=1e-6)
     np.testing.assert_allclose(geometry.norm(td).numpy(),
                                np.asarray(j_geometry.norm(jd)), rtol=1e-6)
+
+
+def test_graph_gate_declines():
+    """A chunk replays a CUDA graph only on a CUDA device, without
+    autograd, at the captured length and with no debug output checks."""
+    cuda = torch.device("cuda")
+    assert graphs.replays(cuda, False, 128, 128)
+    assert not graphs.replays(torch.device("cpu"), False, 128, 128)
+    assert not graphs.replays(cuda, True, 128, 128)
+    assert not graphs.replays(cuda, False, 127, 128)
+    checks = [lambda name, outs: None]
+    try:
+        _build.OUTPUT_CHECKS.extend(checks)
+        assert not graphs.replays(cuda, False, 128, 128)
+    finally:
+        del _build.OUTPUT_CHECKS[-len(checks):]
+    assert graphs.replays(cuda, False, 128, 128)
+
+
+def test_wavefront_counts_eager_chunks():
+    """Chunks the gate declines (here: on the CPU) run eagerly and count
+    as `eager` in COUNTERS["wavefront.graph"], one per chunk; none is
+    captured or replayed."""
+    from skele_raytracer_tpu_torch.scene.parser import parse_scene
+    from skele_raytracer_tpu_torch.utils import profiling
+
+    scene = parse_scene(_scn("spheres1.scn")).to_scene(CLEAN)
+    cfg = RenderConfig(width=16, height=24, quirks=CLEAN, monte_carlo=True,
+                       num_paths=2, max_depth=2, use_shadows=True,
+                       rays_per_chunk=256, backend="torch")
+    chunk = _chunk_samples(cfg)
+    n = cfg.width * cfg.height
+    ids = torch.arange(n, dtype=torch.int64)
+    counts = profiling.COUNTERS["wavefront.graph"]
+    before = dict(counts)
+    with torch.no_grad():
+        out = render_ids_wavefront(scene, cfg, 3, ids)
+    assert out.shape == (n, 3)
+    assert {k: counts[k] - before[k] for k in counts} == {
+        "captures": 0, "replays": 0, "eager": -(-n // chunk)}
+    assert -(-n // chunk) == 3
