@@ -1182,6 +1182,32 @@ def _static_n_records(static: dict) -> int:
     return 1 + static["P"] * (static["D"] - 1)
 
 
+def record_counts(recs, tabs, static: dict) -> dict:
+    """What the hit records `recs` ([K, N], `_pack_record`) say: per slot
+    (0 the primary hit, then each (path, bounce)) the records and those
+    whose hit bit is set; per light kind ("point", "directional") the
+    shadow tests of the hit records, one per live light (mask > 0 in its
+    table), and those that came back unshadowed. K1 also scans for the
+    records that miss; those tests are not counted. Without shadows, or
+    with a kind's block off, its tests are 0."""
+    recs = recs.to(torch.int64)
+    hit = (recs >> 8) & 1
+    per_slot = hit.sum(1).tolist()
+    out = {"slots": [{"records": recs.shape[1], "hits": h}
+                     for h in per_slot]}
+    kinds = (("point", 10, static["point_on"], tabs[3]),
+             ("directional", 10 + static["L"], static["dir_on"], tabs[4]))
+    for kind, base, on, tab in kinds:
+        tests = unshadowed = 0
+        if static["use_shadows"] and on:
+            for li, alive in enumerate((tab[:, 6] > 0).tolist()):
+                if alive:
+                    tests += sum(per_slot)
+                    unshadowed += int((hit & (recs >> (base + li))).sum())
+        out[kind] = {"tests": tests, "unshadowed": unshadowed}
+    return out
+
+
 def replay_table_grads(tabs, planes, recs, g, seed, static: dict):
     """The plain version of the backward kernel: `torch.autograd.grad` of
     sum(replay radiance * g) with respect to the five tables, replayed
@@ -1285,6 +1311,8 @@ class _PathTrace(torch.autograd.Function):
         if want:
             ctx.save_for_backward(*tabs, *planes, out[3])
             ctx.seed, ctx.static = seed, static
+            profiling.COUNTERS["k1.records"].hold(
+                lambda recs=out[3]: record_counts(recs, tabs, static))
         return torch.stack(out[:3], dim=1)
 
     @staticmethod

@@ -21,6 +21,12 @@ memory on the profiler's clock, and `torch.profiler` traces of a run.
   and `wavefront.graph`, the wavefront's chunks by how they ran
   (models/graphs.py): `captures` (graphs captured), `replays` (chunks
   served by a replay) and `eager` (every other chunk).
+* `k1.records` (`RecordCounts`): what K1's hit records of the last
+  training step traced in a take say, per record slot and per light
+  kind (ops/cuda/pathtrace.py `record_counts`). The step only keeps a
+  reference to its records; the reductions run at the counter's first
+  read after the take, so a traced step launches nothing more, and a
+  step outside a take not even that.
 * Device counters (`walk_counters`, only while spans record and a root
   span of ROOT_SPANS is open, so a kernel timed alone under a profiler
   runs as it does outside one): one int64 row per card of WALK_COUNTS for
@@ -48,7 +54,8 @@ import functools
 import os
 import time
 from collections import deque
-from typing import Optional
+from collections.abc import Mapping
+from typing import Callable, Optional
 
 import torch
 from torch.utils._pytree import tree_flatten
@@ -219,11 +226,66 @@ def walk_totals() -> Optional[dict]:
 # Host counters
 # ---------------------------------------------------------------------------
 
+class RecordCounts(Mapping):
+    """The counter `k1.records`: {"slots": [{"records", "hits"} per record
+    slot], "point" / "directional": {"tests", "unshadowed"}} of K1's hit
+    records of the last training step traced in a take (empty before
+    one). `hold` keeps, per K1 launch with records in that step, a
+    function that reduces its records (and so the records); the first
+    read after it runs them, sums their counts and lets the records go."""
+
+    def __init__(self):
+        self._item = None  # id of the step's root span whose records are held
+        self._held: list = []
+        self._counts: dict = {}
+
+    def hold(self, reduce: Callable[[], dict]) -> None:
+        """Keep `reduce` (records -> counts) while spans record inside a
+        `train.step` root span; else nothing."""
+        if not _enabled():
+            return
+        stack = RECORDER.stack
+        if not (stack and stack[0].name == "train.step"):
+            return
+        if self._item != stack[0].id:
+            self._item = stack[0].id
+            self._held = []
+        self._held.append(reduce)
+
+    def _reduce(self) -> dict:
+        if self._held:
+            parts, self._held = [f() for f in self._held], []
+            self._counts = _sum_counts(parts)
+        return self._counts
+
+    def __getitem__(self, key):
+        return self._reduce()[key]
+
+    def __iter__(self):
+        return iter(self._reduce())
+
+    def __len__(self):
+        return len(self._reduce())
+
+
+def _sum_counts(parts: list) -> dict:
+    """The sum of record counts of one step's K1 launches."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = {"slots": [{k: a[k] + b[k] for k in a}
+                         for a, b in zip(out["slots"], p["slots"])],
+               **{kind: {k: out[kind][k] + p[kind][k] for k in out[kind]}
+                  for kind in ("point", "directional")}}
+    return out
+
+
 # `launches`: {kernel module's name: its LAUNCHES dict}; `wavefront.graph`:
-# the wavefront's chunks, counted by models/graphs.py
+# the wavefront's chunks, counted by models/graphs.py; `k1.records`: K1's
+# hit records of a traced training step (`RecordCounts`)
 COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {},
                   "wavefront.graph": {"captures": 0, "replays": 0,
-                                      "eager": 0}}
+                                      "eager": 0},
+                  "k1.records": RecordCounts()}
 
 
 @contextlib.contextmanager
