@@ -21,7 +21,7 @@ its plain PyTorch version and the reference goldens:
   kernel K6, which no render path launches;
 * the clean Whitted integrator (reflection, refraction, Fresnel): test.scn
   at 1024x768 through the CLI (K3 and K4) and both routes (K7 fused),
-  spheres2 at 1920x1080 (no kernel), lit dragon at 640x480, depth 3,
+  spheres2 at 1920x1080 (no render kernel), lit dragon at 640x480, depth 3,
   shadows; progressive rendering with a resume, `--profile` and the
   debug checks;
 * rays sharded over devices and processes (parallel/): the 1080p
@@ -85,7 +85,8 @@ Phases, in order; any failure raises and exits nonzero:
    index and shadow bits equal, t within T_RTOL, direct within
    FUSED_DIRECT_RTOL of its largest value, live rays unchanged by the mask
    and the ray order. Then the fused main path: `render` of dragon 640x480
-   clean gillum 16 (150 K7 launches, no other kernel) and of test.scn
+   clean gillum 16 (150 K7 launches, 150 sort-key and 75 draw launches of
+   the glue, no other kernel) and of test.scn
    1024x768 clean gillum 4, each against the split route (>= 99% of
    values within 1e-3) and timed beside it, a device profile of both
    dragon frames, lit dragon against split and against the CPU plain path
@@ -145,11 +146,13 @@ Phases, in order; any failure raises and exits nonzero:
    clean --shadow --depth 3` at the file's 1024x768 (K3 and K4, neither
    K1 nor K7; a valid P6); the same frame through `render` on the split
    route against the CPU on sampled ids (`compare`) and on the fused
-   route (only K7; >= 99% of values within 1e-3 of the split frame),
+   route (only K7 and the glue's sort keys; >= 99% of values within 1e-3
+   of the split frame),
    each timed (median of 3 warm frames) with its launches per frame, a
    device profile of one chunk (idle share) and the live share of each
    of that chunk's waves; spheres2 at 1920x1080 (glass spheres: refraction
-   and total internal reflection; no kernel), against the CPU and timed;
+   and total internal reflection; no render kernel, the glue's fog
+   draws), against the CPU and timed;
    lit dragon at 640x480, split and fused as test.scn; a Whitted
    gradient of lit dragon's vertices (160x120, depth 2, 256 ids) through
    K3/K4 against the CPU (within 1e-3 of their largest plus 1e-5,
@@ -180,7 +183,14 @@ Phases, in order; any failure raises and exits nonzero:
    process of its own): its PPMs, falling losses, its MAE.
 11. [roofline] `sol_summary` of K1's counted work at the 1080p
    headline.
-12. a JSON line of the kernels (with each one's bound from counted
+12. [glue] (`phase_glue`): the wavefront glue's kernels alone at the
+   split dragon cell's shapes against the int64 chains they replace,
+   bitwise, timed as a graph replays them and by the profiler. It runs
+   after every other profiler trace: after CUDA graph captures, CUPTI has
+   lost the records of K6's one-launch trace in the same process (and of
+   this phase's kernels late in a run: a kernel whose traces all lost its
+   launch is reported "busy not measured").
+13. a JSON line of the kernels (with each one's bound from counted
    operations and bytes: utils/roofline.py; the lab's L1-L6 with 0
    launches on the render paths), nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
@@ -526,11 +536,12 @@ def kernel_modules():
 
 
 def counted_modules():
-    """The modules whose kernels count their launches: the render paths'
-    and the kernel lab's (ops/cuda/lab.py, on no render path)."""
-    from skele_raytracer_tpu_torch.ops.cuda import lab
+    """The modules whose kernels count their launches: the render paths',
+    the kernel lab's (ops/cuda/lab.py, on no render path) and the
+    wavefront glue's (ops/cuda/glue.py)."""
+    from skele_raytracer_tpu_torch.ops.cuda import glue, lab
 
-    return (*kernel_modules(), lab)
+    return (*kernel_modules(), lab, glue)
 
 
 def reset_launches():
@@ -544,6 +555,15 @@ def read_launches() -> dict:
     for mod in counted_modules():
         out.update(mod.LAUNCHES)
     return out
+
+
+def without_glue(launches: dict) -> dict:
+    """`launches` without the wavefront glue's kernels (ops/cuda/glue.py:
+    the ray sort keys and the threefry draws), which the wavefront routes
+    launch beside their render kernels."""
+    from skele_raytracer_tpu_torch.ops.cuda import glue
+
+    return {k: v for k, v in launches.items() if k not in glue.LAUNCHES}
 
 
 def launched(mod, name, fn):
@@ -617,7 +637,7 @@ class ParentKernels:
             self.ptxas[name] = ptxas_summary(err)
             for line in self.ptxas[name]:
                 print(f"[ptxas] parent {name}: {line}")
-        pt, culled, k5, mk, lab = counted_modules()
+        pt, culled, k5, mk, lab, _ = counted_modules()
         self.libs = {pt: pt.bind(ctypes.CDLL(self.paths["pathtrace"])),
                      k5: k5.bind(ctypes.CDLL(self.paths["intersect"])),
                      mk: mk.bind(ctypes.CDLL(self.paths["megakernel"])),
@@ -923,6 +943,88 @@ def phase_graph(smi):
                   f"{e_ms:.2f} ms eager (median of 3)")
     finally:
         del graphs.CHUNK_GRAPHS._capture
+
+
+def graph_ms(fn, reps=50):
+    """Milliseconds per call of fn() as a chunk's CUDA graph runs it: CUDA
+    events around `reps` replays of a graph captured around one call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_glue(smi):
+    """`[glue]`: the wavefront glue's kernels (ops/cuda/glue.py) against the
+    int64 chains they replace, at the split dragon cell's shapes (dragon
+    640x480 clean gillum 16: the 4,096-ray primary wave on the coarse
+    clusters, the 65,536-ray bounce wave with its live mask on the fine
+    ones): each bitwise, then its milliseconds per call as a chunk's graph
+    runs it (`graph_ms`), its device busy time and its launches a call
+    (torch.profiler; a kernel's trace is retaken up to 3 times where it
+    lost the launch, then its busy time is not measured). The seed is a
+    0-d device tensor, as in a chunk's graph."""
+    from skele_raytracer_tpu_torch.config import CLEAN
+    from skele_raytracer_tpu_torch.ops import sampling
+    from skele_raytracer_tpu_torch.ops.cuda import culled, glue
+    from skele_raytracer_tpu_torch.ops.cuda import megakernel as mk
+
+    scene = parsed_scene("dragon.scn", CLEAN)
+    ids = torch.arange(150_000, 150_000 + 4096, device="cuda")
+    waves = mesh_waves(scene, CLEAN, 640, 480, ids, 16)
+    seed = torch.full((), 2**31 + 99, dtype=torch.int64, device="cuda")
+    path_ids = (ids[:, None] * 16 + torch.arange(16, device="cuda")
+                ).reshape(-1)
+    for wave, mesh, pid in (("primary", scene.clusters, ids),
+                            ("bounce", scene.clusters_fine, path_ids)):
+        o, d, *rest = waves[wave]
+        live = rest[0] if rest else None
+        n = o.shape[0]
+        foot = mesh.sort_table(mirrored=False)
+        spat = scene.clusters.sort_table(mirrored=False)
+        cases = {
+            "footprint keys": (
+                lambda: glue.sort_keys_kernel(o, d, foot, live,
+                                              mode=glue.KEY_FOOTPRINT),
+                lambda: culled.footprint_keys_torch(o, d, mesh, live,
+                                                    allow_negative=False)),
+            "spatial keys": (
+                lambda: glue.sort_keys_kernel(o, d, spat, live,
+                                              mode=glue.KEY_SPATIAL),
+                lambda: mk.spatial_keys_torch(o, d, scene.clusters, live)),
+            "draws (2,)": (
+                lambda: sampling.uniform(seed, pid, 0, sampling.PURPOSE_PATH,
+                                         (2,)),
+                lambda: sampling.uniform_torch(seed, pid, 0,
+                                               sampling.PURPOSE_PATH, (2,))),
+        }
+        for name, (kernel, chain) in cases.items():
+            check(torch.equal(kernel(), chain()),
+                  f"[glue] {name} at {n} rays differ from the int64 code")
+            k_ms, c_ms = graph_ms(kernel), graph_ms(chain)
+            for _ in range(3):  # a trace can lose a launch of the kernel
+                k_dev, k_n = call_device(kernel)
+                if k_n == 1:
+                    break
+            busy = (f"{k_dev:.4f} ms busy, 1 launch" if k_n == 1 else
+                    "busy not measured: 3 traces lost launches of it")
+            c_dev, c_n = call_device(chain)
+            print(f"[glue] {name}, {wave} wave of {n} rays (live "
+                  f"{'mask' if live is not None else 'none'}) on {smi}: "
+                  f"bitwise the int64 code; kernel {k_ms:.4f} ms a call in "
+                  f"a graph ({busy}), int64 chain {c_ms:.4f} ms "
+                  f"({c_dev:.4f} ms busy, {c_n:.0f} launches): "
+                  f"{c_ms / k_ms:.1f}x")
 
 
 def phase_device():
@@ -1803,7 +1905,7 @@ def phase_mesh_main_path():
               f"expected {'some' if k4 else 'none'}")
         check(launches["pathtrace"] == 0 and
               launches["triangle_nearest"] == 0 and
-              not any(launches[k] for k in counted_modules()[-1].KERNELS),
+              not any(launches[k] for k in counted_modules()[4].KERNELS),
               f"dragon {label} launched another path's kernel: {launches}")
         counts[label] = launches
         print(f"[main] cli.main {' '.join(argv)} -> rc {rc}, P6 640x480, "
@@ -3191,8 +3293,8 @@ FUSED_FRAMES = [  # (label, scene, width, height, paths, warm frames
 def phase_fused_main(smi, parent=None):
     """The fused route's main path: `render` of dragon 640x480 clean
     gillum 16 depth 2 shadows with fused_megakernel, the launch counters
-    set to 0 just before and read just after (K7 150 times, no other
-    kernel), its time beside the split route's frame (median of 3 warm
+    set to 0 just before and read just after (K7 and the glue's sort
+    keys 150 times each, its draws 75 times, no other kernel), its time beside the split route's frame (median of 3 warm
     frames each) and a device profile of one chunk through each route,
     fused against split (>= 99% of
     values within rtol 1e-3, atol 1e-3: tests/test_megakernel.py's
@@ -3224,10 +3326,14 @@ def phase_fused_main(smi, parent=None):
         img, fused_ms = timed(fused)
         launches = read_launches()
         chunks = -(-w * h // _chunk_samples(cfg))
+        kernels = without_glue(launches)
         check(launches["fused_shade"] == 2 * chunks
-              and sum(launches.values()) == launches["fused_shade"],
+              and sum(kernels.values()) == launches["fused_shade"]
+              and launches["sort_keys"] == 2 * chunks
+              and launches["uniform"] == chunks,
               f"fused {label}: launches {launches}, want {2 * chunks} "
-              f"fused_shade and nothing else")
+              f"fused_shade, {2 * chunks} sort_keys, {chunks} uniform and "
+              f"nothing else")
         check(tuple(img.shape) == (h, w, 3)
               and bool(torch.isfinite(img).all()), f"fused {label}: bad frame")
         split_cfg = cfg.replace(fused_megakernel=False)
@@ -3365,7 +3471,8 @@ def phase_fused_grad():
         grads[route, dev] = {k: getattr(tris, k).grad.cpu() for k in tri_names}
         grads[route, dev]["dl.colour"] = dl.colour.grad.cpu()
     lf = launches["fused", "cuda"]
-    check(lf["fused_shade"] > 0 and sum(lf.values()) == lf["fused_shade"],
+    check(lf["fused_shade"] > 0 and lf["sort_keys"] > 0
+          and sum(without_glue(lf).values()) == lf["fused_shade"],
           f"the fused gradient launched {lf}")
     worst = 0.0
     for k, b in grads["fused", "cpu"].items():
@@ -3414,8 +3521,8 @@ def phase_fused_grad():
     check(all(np.isfinite(losses)) and all(
         b < a for a, b in zip(losses, losses[1:])),
           f"fused fit losses not finite and decreasing: {losses}")
-    check(lfit["fused_shade"] > 0
-          and sum(lfit.values()) == lfit["fused_shade"],
+    check(lfit["fused_shade"] > 0 and lfit["sort_keys"] > 0
+          and sum(without_glue(lfit).values()) == lfit["fused_shade"],
           f"the fused fit launched {lfit}")
     tr = fitted.triangles
     perm = fitted.clusters.perm.long()
@@ -3509,7 +3616,8 @@ def whitted_frame(label, scene, cfg, smi, want):
 
 def whitted_routes(label, scene, cfg, smi, chunk_index):
     """The split and the fused route of one Whitted frame: split launches
-    K3 and K4 and neither K1 nor K7, fused only K7; >= 99% of the fused
+    K3 and K4 and neither K1 nor K7, fused only K7 and the glue's sort
+    keys; >= 99% of the fused
     frame's values within 1e-3 of the split one's; each timed, with its
     launches per frame, a device profile of one chunk (idle share) and
     the live share of each of that chunk's waves."""
@@ -3523,7 +3631,8 @@ def whitted_routes(label, scene, cfg, smi, chunk_index):
                 and n["pathtrace"] == 0 and n["fused_shade"] == 0)
 
     def fused_ok(n):
-        return n["fused_shade"] > 0 and sum(n.values()) == n["fused_shade"]
+        return (n["fused_shade"] > 0 and n["sort_keys"] > 0
+                and sum(without_glue(n).values()) == n["fused_shade"])
 
     fused_cfg = cfg.replace(fused_megakernel=True)
     split, split_n, split_ms = whitted_frame(f"{label} split", scene, cfg,
@@ -3557,7 +3666,8 @@ def phase_whitted(smi):
     to 0 just before and read just after); the same frame through
     `render`, split against the CPU on sampled ids and against the fused
     route; spheres2 1920x1080 (glass of ior 1.1-1.5: refraction and total
-    internal reflection), which launches no kernel, against the CPU; lit
+    internal reflection), which launches no render kernel (the glue's
+    fog draws alone), against the CPU; lit
     dragon 640x480 split and fused; a Whitted gradient of lit dragon's
     vertices through K3/K4 against the CPU. Returns the numbers."""
     from skele_raytracer_tpu_torch import cli
@@ -3595,8 +3705,9 @@ def phase_whitted(smi):
 
     cfg = RenderConfig(width=1920, height=1080, **base)
     scene = parsed_scene("spheres2.scn", CLEAN)
-    _, n, ms = whitted_frame("spheres2", scene, cfg, smi,
-                             lambda n: sum(n.values()) == 0)
+    _, n, ms = whitted_frame(
+        "spheres2", scene, cfg, smi,
+        lambda n: sum(without_glue(n).values()) == 0 and n["sort_keys"] == 0)
     card_vs_cpu("spheres2 1920x1080 Whitted",
                 lambda dev: parsed_scene("spheres2.scn", CLEAN, dev), cfg,
                 WHITTED_SAMPLED_IDS)
@@ -4132,6 +4243,7 @@ def main() -> int:
     phase_roofline(smi, parity)
     print(f"[example] the example and roofline phases took "
           f"{time.perf_counter() - t0:.1f} s wall")
+    phase_glue(smi)
     tp = trained["parity"]
     static, n = tp["static"], tp["n"]
     kernels = [

@@ -38,6 +38,8 @@ REC = 20  # floats per triangle record (csrc/mesh_math.cuh)
 # brute-force plain versions).
 KERNEL_BOX_MARGIN = 1e-4
 
+N_SUPER = 16  # footprint-key superclusters (high bits of the sort key)
+
 # (row in k10's 10 feature rows, column in its 4 planes) of each record
 # slot 0..18: A, B, -e2, -C, -e1, D, -kof.
 _K10_SLOTS = ([(r, 0) for r in range(3)] + [(r, 1) for r in range(3)]
@@ -78,7 +80,8 @@ class ClusteredMesh(_Tensors):
     the mask folded in (masked rows are all zero). kern_lo/kern_hi and
     kern_lo_m/kern_hi_m [C, 3]: the boxes widened by KERNEL_BOX_MARGIN, as
     the culled kernels test them; root/root_m [6]: the union of those
-    (lo then hi)."""
+    (lo then hi). key_table/key_table_m [6 n_sc + 6]: the ray sort keys'
+    boxes (`key_table`), from the tight / mirror-extended cluster boxes."""
 
     v0: torch.Tensor
     v1: torch.Tensor
@@ -96,6 +99,8 @@ class ClusteredMesh(_Tensors):
     kern_hi_m: torch.Tensor
     root: torch.Tensor
     root_m: torch.Tensor
+    key_table: torch.Tensor
+    key_table_m: torch.Tensor
 
     @property
     def n_clusters(self) -> int:
@@ -116,6 +121,12 @@ class ClusteredMesh(_Tensors):
         if mirrored:
             return self.kern_lo_m, self.kern_hi_m, self.root_m
         return self.kern_lo, self.kern_hi, self.root
+
+    def sort_table(self, *, mirrored: bool) -> torch.Tensor:
+        """The sort-key kernel's table (ops/cuda/glue.py): the supercluster
+        boxes of the mirror-extended boxes for parity's test, of the tight
+        ones otherwise, then the mesh box."""
+        return self.key_table_m if mirrored else self.key_table
 
     @property
     def k10(self) -> torch.Tensor:
@@ -149,6 +160,32 @@ def _widened(lo: np.ndarray, hi: np.ndarray, margin: float):
             np.where(full, hi + margin, hi).astype(np.float32))
 
 
+def supercluster_boxes(lo: torch.Tensor, hi: torch.Tensor):
+    """(lo, hi) [n_sc, 3] of the N_SUPER superclusters (contiguous runs of
+    the Morton-ordered clusters; n_sc = min(N_SUPER, C)) of cluster boxes
+    lo, hi [C, 3]: the high bits of the footprint sort key
+    (ops/cuda/culled.py)."""
+    C = lo.shape[0]
+    n_sc = min(N_SUPER, C)
+    g = -(-C // n_sc)
+    pad = n_sc * g - C
+    # empty boxes (lo = 1 > hi = 0) pad the last group: a box only grows
+    lo_p = torch.cat([lo, lo.new_ones((pad, 3))])
+    hi_p = torch.cat([hi, hi.new_zeros((pad, 3))])
+    return (lo_p.reshape(n_sc, g, 3).amin(dim=1),
+            hi_p.reshape(n_sc, g, 3).amax(dim=1))
+
+
+def key_table(lo, hi, mesh_lo, mesh_hi) -> torch.Tensor:
+    """float32 [6 n_sc + 6]: the supercluster boxes of cluster boxes lo, hi
+    [C, 3] (their lo, then their hi), then the mesh box of the tight boxes
+    mesh_lo, mesh_hi [C, 3]: the boxes of the ray sort keys, built once per
+    mesh (ClusteredMesh.key_table)."""
+    sc_lo, sc_hi = supercluster_boxes(lo, hi)
+    return torch.cat([sc_lo.reshape(-1), sc_hi.reshape(-1),
+                      mesh_lo.amin(0), mesh_hi.amax(0)])
+
+
 def mesh_from_arrays(v0, v1, v2, mask, perm, aabb_lo, aabb_hi, aabb_lo_m,
                      aabb_hi_m, rec, device="cpu") -> ClusteredMesh:
     """A ClusteredMesh from NumPy arrays, with its kernel boxes."""
@@ -163,12 +200,14 @@ def mesh_from_arrays(v0, v1, v2, mask, perm, aabb_lo, aabb_hi, aabb_lo_m,
     root = np.concatenate([k_lo.min(0), k_hi.max(0)])
     root_m = np.concatenate([k_lo_m.min(0), k_hi_m.max(0)])
     t = lambda a: torch.as_tensor(np.array(a, np.float32), device=device)
+    lo_t, hi_t, lo_m, hi_m = t(lo_t), t(hi_t), t(lo_m), t(hi_m)
     return ClusteredMesh(
         v0=t(v0), v1=t(v1), v2=t(v2), mask=t(mask), perm=t(perm),
-        aabb_lo=t(lo_t), aabb_hi=t(hi_t), aabb_lo_m=t(lo_m),
-        aabb_hi_m=t(hi_m), rec=t(rec), kern_lo=t(k_lo), kern_hi=t(k_hi),
-        kern_lo_m=t(k_lo_m), kern_hi_m=t(k_hi_m), root=t(root),
-        root_m=t(root_m))
+        aabb_lo=lo_t, aabb_hi=hi_t, aabb_lo_m=lo_m, aabb_hi_m=hi_m,
+        rec=t(rec), kern_lo=t(k_lo), kern_hi=t(k_hi), kern_lo_m=t(k_lo_m),
+        kern_hi_m=t(k_hi_m), root=t(root), root_m=t(root_m),
+        key_table=key_table(lo_t, hi_t, lo_t, hi_t),
+        key_table_m=key_table(lo_m, hi_m, lo_t, hi_t))
 
 
 @profiling.timed_counter("scene.clusters_s")

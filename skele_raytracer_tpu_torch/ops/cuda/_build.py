@@ -102,11 +102,12 @@ def check_outputs(name: str, *outs) -> None:
 # K6's (`sphere_nearest_hits_lanes`) and "pathtrace_sweep" pathtrace.cu
 # with K1's variants (`pathtrace_forward_variant`), used only for
 # measurement and tests; "culled_lab" holds the kernel lab's L1-L4
-# (ops/cuda/lab.py), which no render path launches.
+# (ops/cuda/lab.py), which no render path launches; "glue" the wavefront
+# glue's sort keys and draws (ops/cuda/glue.py).
 CUDA_LIBRARIES = {"pathtrace": ["pathtrace.cu"],
                   "pathtrace_bwd": ["pathtrace_bwd.cu"],
                   "culled": ["culled.cu"], "intersect": ["intersect.cu"],
-                  "megakernel": ["megakernel.cu"],
+                  "megakernel": ["megakernel.cu"], "glue": ["glue.cu"],
                   "culled_lab": ["culled_lab.cu"],
                   "culled_sweep": ["culled.cu"],
                   "intersect_sweep": ["intersect.cu"],

@@ -42,6 +42,7 @@ import torch
 
 from skele_raytracer_tpu_torch.config import CLEAN_T_EPS, TRIANGLE_DET_EPS, Quirks
 from skele_raytracer_tpu_torch.ops import accel
+from skele_raytracer_tpu_torch.ops.cuda import glue
 from skele_raytracer_tpu_torch.ops.cuda._build import check_outputs
 from skele_raytracer_tpu_torch.ops.cuda.intersect import (
     BIG,
@@ -53,7 +54,6 @@ from skele_raytracer_tpu_torch.ops.geometry import cross
 from skele_raytracer_tpu_torch.utils import profiling
 
 BIG_I = 1 << 30  # "no triangle" index of a miss, before the clamp
-N_SUPER = 16  # footprint-key superclusters (high bits of the sort key)
 _MASK = 0xFFFFFFFF
 _DEAD = _MASK  # sort key of a dead ray: sorts to the tail
 
@@ -129,20 +129,13 @@ def _spatial_sort_keys(o, d, lo, hi):
 
 
 def _footprint_sort_keys(o, d, mesh, *, allow_negative: bool):
-    """Sort key per ray: which of N_SUPER superclusters (contiguous runs of
+    """Sort key per ray: which of accel.N_SUPER superclusters (contiguous runs of
     the Morton-ordered clusters) the ray enters, in the high bits, and the
     spatial key below, so a tile's union of entered clusters approaches
     one ray's. Bitwise the JAX package's."""
-    lo_c, hi_c = mesh.bounds(mirrored=allow_negative)
-    C = lo_c.shape[0]
-    n_sc = min(N_SUPER, C)
-    g = -(-C // n_sc)
-    pad = n_sc * g - C
-    # empty boxes (lo = 1 > hi = 0) pad the last group: a box only grows
-    lo_p = torch.cat([lo_c, lo_c.new_ones((pad, 3))])
-    hi_p = torch.cat([hi_c, hi_c.new_zeros((pad, 3))])
-    sc_lo = lo_p.reshape(n_sc, g, 3).amin(dim=1)
-    sc_hi = hi_p.reshape(n_sc, g, 3).amax(dim=1)
+    sc_lo, sc_hi = accel.supercluster_boxes(
+        *mesh.bounds(mirrored=allow_negative))
+    n_sc = sc_lo.shape[0]
     amask, _ = accel.ray_aabb_entry(o, d, sc_lo, sc_hi,
                                     allow_negative=allow_negative)
     weights = 1 << torch.arange(n_sc, dtype=torch.int64, device=o.device)
@@ -152,14 +145,29 @@ def _footprint_sort_keys(o, d, mesh, *, allow_negative: bool):
     return ((scmask << (32 - n_sc)) & _MASK) | (spatial >> n_sc)
 
 
+def footprint_keys_torch(o, d, mesh, live=None, *, allow_negative: bool):
+    """The keys `_sort_rays` sorts by, in int64 tensor ops: the footprint
+    key, or _DEAD where `live` (float32 [R] or None) is not > 0. The plain
+    version of the sort-key kernel (ops/cuda/glue.py)."""
+    keys = _footprint_sort_keys(o, d, mesh, allow_negative=allow_negative)
+    return keys if live is None else torch.where(live > 0, keys, _DEAD)
+
+
 @profiling.spanned("sort")
 def _sort_rays(o, d, mesh, quirks: Quirks, live):
     """(order, live_sorted): the footprint order of the rays (dead rays
-    last) and the live mask in that order (None when all are live)."""
-    keys = _footprint_sort_keys(o, d, mesh,
-                                allow_negative=quirks.reference_triangle_test)
-    if live is not None:
-        keys = torch.where(live > 0, keys, _DEAD)
+    last) and the live mask in that order (None when all are live). The
+    keys come from the sort-key kernel on CUDA tensors and from
+    `footprint_keys_torch` elsewhere."""
+    allow_negative = quirks.reference_triangle_test
+    if o.device.type == "cuda":
+        table = mesh.sort_table(mirrored=allow_negative)
+        keys = glue.sort_keys_kernel(o, d, table, live,
+                                     mode=glue.KEY_FOOTPRINT,
+                                     allow_negative=allow_negative)
+    else:
+        keys = footprint_keys_torch(o, d, mesh, live,
+                                    allow_negative=allow_negative)
     order = torch.sort(keys, stable=True).indices
     return order, None if live is None else live[order]
 

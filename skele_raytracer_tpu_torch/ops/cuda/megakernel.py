@@ -46,7 +46,7 @@ import ctypes
 import torch
 
 from skele_raytracer_tpu_torch.config import CLEAN_T_EPS
-from skele_raytracer_tpu_torch.ops.cuda import culled
+from skele_raytracer_tpu_torch.ops.cuda import culled, glue
 from skele_raytracer_tpu_torch.ops.cuda._build import check_outputs
 from skele_raytracer_tpu_torch.ops.cuda.intersect import (
     BIG,
@@ -369,15 +369,30 @@ def fused_shade_kernel(feats, live, mesh, shade, sph, lights, n_point: int,
     return direct, t, kind, index, unsh
 
 
-@profiling.spanned("sort")
-def sort_rays(o, d, mesh, live=None):
-    """(order, live in that order or None): the rays sorted by the spatial
-    key of ops/cuda/culled.py over the mesh's box, dead rays last (the JAX
-    package's fused_shade_forward order)."""
+def spatial_keys_torch(o, d, mesh, live=None):
+    """The keys `sort_rays` sorts by, in int64 tensor ops: the spatial key
+    of ops/cuda/culled.py over the mesh's box, or where `live` (float32 [R])
+    is given, that key >> 1 and culled._DEAD where `live` is not > 0. The
+    plain version of the sort-key kernel's spatial mode (ops/cuda/glue.py).
+    """
     keys = culled._spatial_sort_keys(o, d, mesh.aabb_lo.amin(0),
                                      mesh.aabb_hi.amax(0))
     if live is not None:
         keys = torch.where(live > 0, keys >> 1, culled._DEAD)
+    return keys
+
+
+@profiling.spanned("sort")
+def sort_rays(o, d, mesh, live=None):
+    """(order, live in that order or None): the rays sorted by the spatial
+    key of ops/cuda/culled.py over the mesh's box, dead rays last (the JAX
+    package's fused_shade_forward order). The keys come from the sort-key
+    kernel on CUDA tensors and from `spatial_keys_torch` elsewhere."""
+    if o.device.type == "cuda":
+        table = mesh.sort_table(mirrored=False)
+        keys = glue.sort_keys_kernel(o, d, table, live, mode=glue.KEY_SPATIAL)
+    else:
+        keys = spatial_keys_torch(o, d, mesh, live)
     order = torch.sort(keys, stable=True).indices
     return order, None if live is None else live[order].contiguous()
 

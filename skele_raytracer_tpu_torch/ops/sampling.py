@@ -16,7 +16,9 @@ counter words given as Python ints stay scalars of the tensor ops (no
 tensor is built from them, so no host-to-device copy). The seed may also
 be an int64 tensor (a 0-d device tensor: the static input of a chunk's
 CUDA graph, models/graphs.py), whose key word then flows on the device;
-the draws are the same bits either way.
+the draws are the same bits either way. On CUDA tensors `uniform` runs as
+one kernel (ops/cuda/glue.py), which gives these ops' bits; they stay the
+path on every other device and the kernel's oracle (`uniform_torch`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from skele_raytracer_tpu_torch.config import Quirks
+from skele_raytracer_tpu_torch.ops.cuda import glue
 from skele_raytracer_tpu_torch.ops.geometry import cross
 
 # Purpose tags for independent streams per (ray, bounce).
@@ -93,8 +96,18 @@ def uniform(seed, ray_id: torch.Tensor, bounce, purpose, shape=()):
     int64 tensor on ray_id's device (the same draws).
 
     Draw i comes from word i%2 of threefry counter (ray_id, i//2), the
-    JAX package's two-word mapping (ops/sampling.py:80-106 there).
+    JAX package's two-word mapping (ops/sampling.py:80-106 there). On CUDA
+    tensors one kernel draws them (ops/cuda/glue.py `uniform_kernel`),
+    elsewhere the int64 tensor ops of `uniform_torch`: the same bits.
     """
+    if ray_id.device.type == "cuda":
+        return glue.uniform_kernel(seed, ray_id, bounce, purpose, shape)
+    return uniform_torch(seed, ray_id, bounce, purpose, shape)
+
+
+def uniform_torch(seed, ray_id: torch.Tensor, bounce, purpose, shape=()):
+    """`uniform` in int64 tensor ops on any device: the plain version of
+    the draw kernel."""
     n = int(np.prod(shape, dtype=np.int64)) if shape else 1
     m = (n + 1) // 2
     k0, k1 = _stream_key_words(seed, bounce, purpose)

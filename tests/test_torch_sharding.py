@@ -52,7 +52,11 @@ from skele_raytracer_tpu_torch.scene.convert import (
     scene_to_numpy,
 )
 from skele_raytracer_tpu_torch.scene.parser import parse_scene_text
-from skele_raytracer_tpu_torch.scene.types import leaf_items, replace_leaves
+from skele_raytracer_tpu_torch.scene.types import (
+    leaf_items,
+    refresh_clusters,
+    replace_leaves,
+)
 from tests.conftest import TEST_SCN, assert_images_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -259,6 +263,31 @@ def test_replicate_scene_keeps_a_resident_copy(scene):
         scene, ambient=scene.ambient.clone().requires_grad_(True))
     a, b = (replicate_scene(leaf, mesh)[meta] for _ in range(2))
     assert a is not b and a.ambient.requires_grad
+
+
+def test_resident_copy_refresh_carries_the_sort_key_tables(monkeypatch):
+    """A resident copy refreshed from a scene of the same layout but a
+    rebuilt mesh (`refresh_clusters` after moving the vertices) holds the
+    new mesh's sort-key tables, which the card's sort kernel reads. The
+    device "cpu:0" is never a CPU tensor's device, so `_resident` takes
+    its copy path here with real values."""
+    monkeypatch.setattr(api, "_RESIDENT", {})
+    dev = torch.device("cpu", 0)
+    scene = k5_mesh_scene(t=1200)
+    first = api._resident(scene, dev)
+    assert first is not scene
+    tri = scene.triangles
+    moved = refresh_clusters(dataclasses.replace(scene, triangles=(
+        dataclasses.replace(tri, v0=tri.v0 * 1.5, v1=tri.v1 * 1.5,
+                            v2=tri.v2 * 1.5))))
+    again = api._resident(moved, dev)
+    assert again is first
+    for mesh in ("clusters", "clusters_fine"):
+        old, new, copy = (getattr(s, mesh) for s in (scene, moved, again))
+        for mirrored in (False, True):
+            table = copy.sort_table(mirrored=mirrored)
+            assert torch.equal(table, new.sort_table(mirrored=mirrored))
+            assert not torch.equal(table, old.sort_table(mirrored=mirrored))
 
 
 def test_pad_ids_and_target_rows():

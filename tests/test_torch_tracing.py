@@ -30,7 +30,7 @@ from skele_raytracer_tpu_torch.config import CLEAN, PARITY, RenderConfig
 from skele_raytracer_tpu_torch.models import train
 from skele_raytracer_tpu_torch.models.renderer import render, render_frames
 from skele_raytracer_tpu_torch.ops import accel
-from skele_raytracer_tpu_torch.ops.cuda import culled, intersect, lab
+from skele_raytracer_tpu_torch.ops.cuda import culled, glue, intersect, lab
 from skele_raytracer_tpu_torch.ops.cuda import megakernel as mk
 from skele_raytracer_tpu_torch.ops.cuda import pathtrace as pt
 from skele_raytracer_tpu_torch.scene.parser import parse_scene_text
@@ -192,7 +192,7 @@ def test_the_ring_keeps_the_newest_spans(monkeypatch):
     assert [s.name for s in rec.spans] == ["s2", "s3", "s4", "s5"]
 
 
-@pytest.mark.parametrize("mod", [pt, culled, mk, intersect, lab],
+@pytest.mark.parametrize("mod", [pt, culled, mk, intersect, lab, glue],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_launches_are_in_the_registry(mod):
     name = mod.__name__.rsplit(".", 1)[1]
@@ -202,7 +202,7 @@ def test_launches_are_in_the_registry(mod):
     assert all(type(v) is int for v in mod.LAUNCHES.values())
     mod.LAUNCHES[next(iter(mod.LAUNCHES))] += 0  # a plain dict's update
     assert set(registry) == {"pathtrace", "culled", "megakernel",
-                             "intersect", "lab"}
+                             "intersect", "lab", "glue"}
 
 
 def test_cluster_builds_add_their_seconds():
