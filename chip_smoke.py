@@ -178,7 +178,9 @@ Phases, in order; any failure raises and exits nonzero:
    headline.
 12. [glue] (`phase_glue`): the wavefront glue's kernels alone at the
    split dragon cell's shapes against the int64 chains they replace,
-   bitwise, timed as a graph replays them and by the profiler. It runs
+   bitwise, timed as a graph replays them and by the profiler; then G3
+   and G4 (the hit shading) alone, and a wave's `_shade_hit` through them
+   against the tensor code they replace (launches and time). It runs
    after every other profiler trace: after CUDA graph captures, CUPTI has
    lost the records of K6's one-launch trace in the same process (and of
    this phase's kernels late in a run: a kernel whose traces all lost its
@@ -250,6 +252,7 @@ from tests.torch_cases import (
     stochastic_bad_fraction,
     synthetic_mesh,
     tied_k5_case,
+    ulp_gap,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -586,6 +589,75 @@ def phase_glue(smi):
                   f"a graph ({busy}), int64 chain {c_ms:.4f} ms "
                   f"({c_dev:.4f} ms busy, {c_n:.0f} launches): "
                   f"{c_ms / k_ms:.1f}x")
+        phase_glue_shade(smi, scene, wave, o, d, live)
+
+
+def phase_glue_shade(smi, scene, wave, o, d, live):
+    """`[glue]` G3 and G4 (the split route's hit shading) at one of dragon's
+    waves: G3 alone (on K3's answers) and G4 alone (on K4's), each as a
+    chunk's graph runs it and by the profiler, and the wave's whole
+    `_shade_hit` through them against the same wave through the tensor
+    code (every output but the direct term bitwise, the direct term within
+    4 ulp): the launches and time the two kernels take the place of."""
+    from skele_raytracer_tpu_torch.config import CLEAN, RenderConfig
+    from skele_raytracer_tpu_torch.models import integrator
+    from skele_raytracer_tpu_torch.ops.cuda import culled, glue
+    from skele_raytracer_tpu_torch.ops.geometry import _nearest_triangles
+
+    cfg = RenderConfig(width=640, height=480, quirks=CLEAN, monte_carlo=True,
+                       num_paths=16, max_depth=2, use_shadows=True,
+                       backend="cuda")
+    bounce = 0 if live is None else 1
+    tri = _nearest_triangles(o, d, scene, CLEAN, live)[:3]
+    mesh = scene.clusters_fine if live is not None else scene.clusters
+    g3 = lambda: glue.shade_hit_kernel(o, d, live, None, tri, scene, cfg,
+                                       k4=True)
+    hs = g3()
+    occ = culled.occluded_features(hs.feats_d, hs.bound_d, mesh,
+                                   quirks=CLEAN,
+                                   live=hs.k4_live[:hs.bound_d.shape[0]])
+    g4 = lambda: glue.shade_direct_kernel(hs, None, occ)
+    kernel_wave = lambda: integrator._shade_hit(scene, cfg, 0, o, d, None,
+                                                bounce, live)
+    gate = integrator._shade_kernels
+
+    def tensor_wave():
+        integrator._shade_kernels = lambda *a: False
+        try:
+            return integrator._shade_hit(scene, cfg, 0, o, d, None, bounce,
+                                         live)
+        finally:
+            integrator._shade_kernels = gate
+
+    got, want = kernel_wave(), tensor_wave()
+    pairs = [*zip(got[0], want[0]), *zip(got[1], want[1]), *zip(got[3:],
+                                                                 want[3:])]
+    ulp = int(ulp_gap(got[2], want[2]).max())
+    check(all(torch.equal(a, b) for a, b in pairs) and ulp <= 4,
+          f"[glue] G3/G4 at dragon's {wave} wave differ from the tensor "
+          f"code (direct {ulp} ulp)")
+    out = {}
+    for name, fn in (("G3", g3), ("G4", g4), ("wave, kernels", kernel_wave),
+                     ("wave, tensor code", tensor_wave)):
+        ms = graph_ms(fn)
+        for _ in range(3):  # a trace can lose a launch of the kernel
+            dev, n = call_device(fn)
+            if name not in ("G3", "G4") or n == 1:
+                break
+        out[name] = (ms, dev, n)
+        busy = (f"{dev:.4f} ms busy, {n:.0f} launches"
+                if name not in ("G3", "G4") or n == 1 else
+                "busy not measured: 3 traces lost launches of it")
+        print(f"[glue] {name}, dragon's {wave} wave of {o.shape[0]} rays on "
+              f"{smi}: {ms:.4f} ms a call in a graph ({busy})")
+    (km, kd, kn), (tm, td, tn) = out["wave, kernels"], out["wave, tensor code"]
+    g_ms = out["G3"][0] + out["G4"][0]
+    g_dev = out["G3"][1] + out["G4"][1]
+    print(f"[glue] G3 + G4 at dragon's {wave} wave: bitwise the tensor code "
+          f"but the direct term ({ulp} ulp); they take the place of "
+          f"{tn - kn + 2:.0f} launches, {tm - km + g_ms:.4f} ms in a graph "
+          f"({td - kd + g_dev:.4f} ms busy); the wave {tm:.4f} -> {km:.4f} "
+          f"ms")
 
 
 def phase_device():

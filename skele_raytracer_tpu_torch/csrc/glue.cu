@@ -1,5 +1,6 @@
-// The wavefront glue's integer chains as single launches, for Hopper
-// (sm_90a): the ray sort keys and the threefry draws.
+// The wavefront glue's chains as single launches, for Hopper (sm_90a): the
+// ray sort keys and the threefry draws (integer chains), and the split
+// route's hit shading before and after K4 (float chains).
 //
 // Replaces no TPU kernel: on the TPU these chains are XLA fusions of the
 // jnp code (the JAX package's ops/pallas/culled.py `_footprint_sort_keys`
@@ -23,11 +24,27 @@
 // place (a shadow wave's directions are one row expanded), and the seed
 // read from device memory when a chunk's graph holds it there, so a
 // replay with a new seed draws the new stream without a host copy.
+//
+// The hit shading (shade_math.cuh) replaces what models/integrator.py
+// `_shade_hit` ran around K3 and K4 on the split route: about 170 float
+// tensor operations a wave (the hit record after the scans, the material
+// gather, K4's shadow-ray setup, the eager Blinn-Phong), each its own
+// launch. G3 (`shade_hit_kernel`) runs before K4 and writes the hit record,
+// the material and K4's operands; G4 (`shade_direct_kernel`) runs after it
+// and writes the direct term. G3 reads ~40 B a ray besides the table rows
+// it gathers (L2-resident) and writes ~100 B plus ~50 B a light; G4 reads
+// ~80 B and writes 12 B: at 65,536 rays ~17 MB, ~5 us of device memory,
+// so both are bounded by their launch and a wave of blocks. One thread a
+// ray; G3 stages its rows of several floats (point, normal, material,
+// K4's feature rows) through shared memory, a block's rows at a time, so
+// that its stores are whole lines: written by each thread in place, a warp
+// store touches 32 rows and the L2 takes ~8x the transactions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "glue_math.cuh"
+#include "shade_math.cuh"
 
 namespace {
 
@@ -78,6 +95,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Stores the block's rows of W floats (`mine`, one row a thread, the first
+// n threads' rows) to out[0, n W) through shared memory, so that each warp
+// store covers whole lines and not one float of 32 rows.
+template <int W>
+__device__ void store_rows(float* stage, const float* mine, float* out,
+                           int n) {
+  __syncthreads();  // the last rows are out of the stage
+  if ((int)threadIdx.x < n)
+    for (int c = 0; c < W; ++c) stage[threadIdx.x * W + c] = mine[c];
+  __syncthreads();
+  for (int k = threadIdx.x; k < n * W; k += kThreads) out[k] = stage[k];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    shade_hit_kernel(sh::ShadeArgs a) {
+  __shared__ float stage[kThreads * sh::MAT];
+  const int64_t i0 = (int64_t)blockIdx.x * kThreads, i = i0 + threadIdx.x;
+  const int n = (int)(a.R - i0 < kThreads ? a.R - i0 : kThreads);
+  sh::Hit h;
+  if (i < a.R) {
+    sh::hit_record(a, i, h);
+    a.kind[i] = h.kind;
+    a.index[i] = h.index;
+    a.t[i] = h.t;
+    a.shades[i] = sh::shades(a, h);
+    a.miss[i] = h.kind == 0;
+  }
+  store_rows<3>(stage, h.p, a.point + 3 * i0, n);
+  store_rows<3>(stage, h.n, a.normal + 3 * i0, n);
+  store_rows<sh::MAT>(stage, h.mat, a.mat + sh::MAT * i0, n);
+  if (!(a.flags & sh::K4_SHADOWS)) return;  // uniform across the block
+  float row[10];
+  if (a.flags & sh::POINT_BLOCK)
+    for (int64_t l = 0; l < a.Lp; ++l) {
+      if (i < a.R) a.bound_p[l * a.R + i] = sh::point_shadow_ray(a, h, l, row);
+      store_rows<10>(stage, row, a.feats_p + 10 * (l * a.R + i0), n);
+    }
+  if (a.flags & sh::DIR_BLOCK)
+    for (int64_t l = 0; l < a.Ld; ++l) {
+      if (i < a.R) {
+        sh::dir_shadow_ray(a, h, l, row);
+        a.bound_d[l * a.R + i] = a.big;
+      }
+      store_rows<10>(stage, row, a.feats_d + 10 * (l * a.R + i0), n);
+    }
+  if (i < a.R) {
+    const int64_t L = a.Lp > a.Ld ? a.Lp : a.Ld;
+    for (int64_t l = 0; l < L; ++l) a.k4_live[l * a.R + i] = h.live;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    shade_direct_kernel(sh::ShadeArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < a.R) sh::shade_direct_ray(a, i);
+}
+
 }  // namespace
 
 // The sort keys of n rays: o, d [n, 3] float32 at strides (so0, so1),
@@ -124,4 +198,26 @@ extern "C" int glue_uniform(long long R, long long n, int ids_int64,
     uniform_kernel<int32_t><<<blocks, kThreads, 0, st>>>(
         R, m, n, (const int32_t*)ids, seed_dev, seed, bounce, purpose, out);
   return (int)cudaGetLastError();
+}
+
+// G3 and G4 on a->R rays (shade_math.cuh ShadeArgs, read from host memory
+// when the call is made, so a graph keeps the operands of its capture).
+// Launch and return as glue_sort_keys.
+extern "C" int glue_shade_hit(const sh::ShadeArgs* a, void* stream) {
+  if (a->R <= 0) return (int)cudaGetLastError();
+  shade_hit_kernel<<<(int)((a->R + kThreads - 1) / kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int glue_shade_direct(const sh::ShadeArgs* a, void* stream) {
+  if (a->R <= 0) return (int)cudaGetLastError();
+  shade_direct_kernel<<<(int)((a->R + kThreads - 1) / kThreads), kThreads,
+                        0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// sizeof(ShadeArgs), which ops/cuda/glue.py's ctypes mirror must match.
+extern "C" long long glue_shade_args_bytes() {
+  return (long long)sizeof(sh::ShadeArgs);
 }

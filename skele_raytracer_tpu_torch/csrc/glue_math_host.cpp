@@ -1,12 +1,13 @@
-// Host build of the glue kernels' per-ray math (glue_math.cuh), for the CPU
-// tests: g++ -O2 -ffp-contract=off -shared -fPIC. The two functions take
-// glue.cu's launchers' operands (host pointers, no stream) and run the same
-// per-ray functions serially, so the tests hold them bitwise to the int64
-// tensor code on a machine with no GPU.
+// Host build of the glue kernels' per-ray math (glue_math.cuh,
+// shade_math.cuh), for the CPU tests: g++ -O2 -ffp-contract=off -shared
+// -fPIC. The functions take glue.cu's launchers' operands (host pointers, no
+// stream) and run the same per-ray functions serially, so the tests hold
+// them to the tensor code on a machine with no GPU.
 
 #include <stdint.h>
 
 #include "glue_math.cuh"
+#include "shade_math.cuh"
 
 extern "C" int glue_sort_keys_host(int n, int mode, int n_sc,
                                    int allow_negative, long long so0,
@@ -43,4 +44,16 @@ extern "C" void glue_uniform_host(long long R, long long n, int ids_int64,
     for (long long j = 0; j < m; ++j)
       gm::uniform_pair(s, bounce, purpose, id, (uint32_t)j, n, out + r * n);
   }
+}
+
+extern "C" void glue_shade_hit_host(const sh::ShadeArgs* a) {
+  for (int64_t i = 0; i < a->R; ++i) sh::shade_hit_ray(*a, i);
+}
+
+extern "C" void glue_shade_direct_host(const sh::ShadeArgs* a) {
+  for (int64_t i = 0; i < a->R; ++i) sh::shade_direct_ray(*a, i);
+}
+
+extern "C" long long glue_shade_args_bytes_host() {
+  return (long long)sizeof(sh::ShadeArgs);
 }

@@ -36,9 +36,10 @@ their replays are ordered on the caller's stream, one chunk at a time,
 and what a graph keeps past its replay is its static buffers and output,
 so the rest of its memory is scratch that the next capture reuses. A
 capture launches nothing, but the wrappers count their launches
-(`COUNTERS["launches"]`) as they run: those counts are put back, and each
-replay adds them. The spans inside a chunk (`wave`, `sort`, `launch.*`)
-open only while it is captured; the caller's `chunk` span opens around
+(`COUNTERS["launches"]`) and the split waves their route
+(`COUNTERS["wavefront.shade"]`) as they run: those counts are put back,
+and each replay adds them. The spans inside a chunk (`wave`, `sort`,
+`launch.*`) open only while it is captured; the caller's `chunk` span opens around
 each replay and `launch.graph` around the replay's launch.
 `COUNTERS["wavefront.graph"]` counts chunks: `captures`, `replays`, and
 `eager` for every chunk the wavefront ran without a replay (a capture's
@@ -86,8 +87,8 @@ def _scene_key(obj) -> tuple:
 
 class _Graph:
     """A captured chunk: the graph, its static inputs (ids, seed) and
-    output, the launch counts its capture recorded ([(LAUNCHES dict, name,
-    count)]) and the scene it reads."""
+    output, the counts its capture recorded ([(counter dict, name,
+    count)]: launches, shaded waves) and the scene it reads."""
 
     __slots__ = ("graph", "ids", "seed", "out", "launches", "keep")
 
@@ -147,8 +148,9 @@ class ChunkGraphs:
         """Captures fn on the chunk `ids` and keeps the graph under `key`,
         releasing the device's least recently used graph past CAPACITY."""
         dev = ids.device
-        launches = profiling.COUNTERS["launches"]
-        before = [(c, dict(c)) for c in launches.values()]
+        counters = (*profiling.COUNTERS["launches"].values(),
+                    profiling.COUNTERS["wavefront.shade"])
+        before = [(c, dict(c)) for c in counters]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(dev):
             if dev not in self.capturing:

@@ -20,7 +20,11 @@ routes, as in the JAX package:
 
 * the split pipeline: `geometry.intersect` (spheres in plain torch,
   triangles through K3 or K5), shadows through K4 and eager Blinn-Phong
-  (ops/shading.py);
+  (ops/shading.py). On the card without autograd (`_shade_kernels`) the
+  tensor code after the scans runs as two glue kernels around K4
+  (ops/cuda/glue.py): G3 for the hit record, the material and K4's shadow
+  rays, G4 for the direct term. `COUNTERS["wavefront.shade"]` counts the
+  split waves on the card by the route they took (`kernel`, `eager`);
 * with `RenderConfig.fused_megakernel` on a clean mesh scene of more than
   4 clusters without fog (`_use_megakernel`), the fused kernel K7
   (ops/cuda/megakernel.py `fused_shade`): one launch per wave for the hit,
@@ -47,13 +51,17 @@ from skele_raytracer_tpu_torch.config import INDIRECT_ORIGIN_EPS, RenderConfig
 from skele_raytracer_tpu_torch.ops import sampling
 from skele_raytracer_tpu_torch.ops.geometry import (
     Hits,
+    _nearest_triangles,
     dot,
     hit_geometry,
     intersect,
+    nearest_sphere,
     normalize,
     offset_origin,
 )
 from skele_raytracer_tpu_torch.ops.shading import (
+    _unpack_material,
+    _uses_culled_shadows,
     direct_illumination,
     fresnel,
     gather_material,
@@ -63,6 +71,7 @@ from skele_raytracer_tpu_torch.utils import profiling
 
 _PI = math.pi
 _MASK = 0xFFFFFFFF
+SHADE = profiling.COUNTERS["wavefront.shade"]
 
 
 def _fog_uniforms(scene, cfg: RenderConfig, seed, ids, bounce):
@@ -91,6 +100,55 @@ def _use_megakernel(scene, cfg: RenderConfig) -> bool:
                      or q.scalar_epsilon_offset))
 
 
+def _glue_serves(scene, cfg: RenderConfig) -> bool:
+    """True when the glue kernels G3 and G4 compute what the split route's
+    tensor code does for this scene and configuration: no live fog (its
+    draws and `_fog_term` stay tensor code) and, with shadows, every
+    triangle shadow through K4 (a mesh of 4 clusters or fewer has its
+    shadows scanned brute force by `ray_triangle_all`)."""
+    q = cfg.quirks
+    if scene.has_fog and not scene.fog_zeroed:
+        return False
+    return not (cfg.use_shadows and scene.has_triangles
+                and not q.sphere_only_shadows
+                and not _uses_culled_shadows(scene, q))
+
+
+def _shade_kernels(scene, cfg: RenderConfig, o, d) -> bool:
+    """True when the split route's hit shading runs as G3 and G4: CUDA
+    tensors that need no gradient, where `_glue_serves`."""
+    return (o.device.type == "cuda" and _glue_serves(scene, cfg)
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (o, d, *scene.tensors()))))
+
+
+def _shade_hit_glue(scene, cfg: RenderConfig, o, d, live):
+    """`_shade_hit`'s split route through G3, K4 and G4: the scans as the
+    tensor route runs them, then G3; K4 on G3's shadow rays toward the
+    point, then the directional lights; G4 (ops/cuda/glue.py)."""
+    from skele_raytracer_tpu_torch.ops.cuda import culled, glue
+
+    quirks = cfg.quirks
+    sph = (nearest_sphere(o, d, scene.spheres.center, scene.spheres.radius,
+                          scene.spheres.mask, quirks=quirks)
+           if scene.has_spheres else None)
+    tri = (_nearest_triangles(o, d, scene, quirks, live)[:3]
+           if scene.has_triangles else None)
+    k4 = cfg.use_shadows and _uses_culled_shadows(scene, quirks)
+    g = glue.shade_hit_kernel(o, d, live, sph, tri, scene, cfg, k4=k4)
+    mesh = (scene.clusters_fine
+            if live is not None and scene.clusters_fine is not None
+            else scene.clusters)
+    occ = [None if feats is None else culled.occluded_features(
+        feats, bound, mesh, quirks=quirks,
+        live=g.k4_live[:bound.shape[0]])
+        for feats, bound in ((g.feats_p, g.bound_p), (g.feats_d, g.bound_d))]
+    direct = glue.shade_direct_kernel(g, *occ)
+    hits = Hits(kind=g.kind, index=g.index, t=g.t, point=g.point,
+                normal=g.normal)
+    return hits, _unpack_material(g.mat), direct, g.shades, g.miss
+
+
 def _shade_hit(scene, cfg: RenderConfig, seed, o, d, ids, bounce, live=None):
     """Nearest hit + direct illumination of a ray batch. `live` [R]
     (1.0 where the ray still carries throughput) marks a bounce wave.
@@ -107,6 +165,11 @@ def _shade_hit(scene, cfg: RenderConfig, seed, o, d, ids, bounce, live=None):
         hits = Hits(kind=kind, index=index, t=t, point=point, normal=normal)
         mat = gather_material(scene, kind, index, quirks=quirks)
         return hits, mat, direct, kind > 0, kind == 0
+    if _shade_kernels(scene, cfg, o, d):
+        SHADE["kernel"] += 1
+        return _shade_hit_glue(scene, cfg, o, d, live)
+    if o.is_cuda:
+        SHADE["eager"] += 1
     hits = intersect(o, d, scene, quirks=quirks, live=live)
     kind, index = hits.kind, hits.index
     # shadow rays matter only for rays that hit and carry throughput

@@ -419,14 +419,24 @@ def triangle_occluded(o, d, mesh: accel.ClusteredMesh, *, quirks: Quirks,
     (unbounded). Clean-mode triangle occlusion: parity's shadows scan
     spheres only and never come here."""
     R = o.shape[0]
-    t_clip = 1.0 if quirks.near_clip_t_le_1 else CLEAN_T_EPS
     bound = (torch.full((R,), BIG, dtype=torch.float32, device=o.device)
              if t_max is None else t_max.to(torch.float32))
-    feats = _ray_features10(o, d)
-    live = _live_f32(live)
+    return occluded_features(_ray_features10(o, d), bound, mesh,
+                             quirks=quirks, live=_live_f32(live),
+                             reorder=reorder)
+
+
+def occluded_features(feats, bound, mesh: accel.ClusteredMesh, *,
+                      quirks: Quirks, live=None, reorder: bool = True):
+    """`triangle_occluded` of rays given by their feature rows [R, 10]
+    (`_ray_features10`: d, o x d, o, 1) and bounds [R] float32 (BIG:
+    unbounded); live [R] float32 of 0.0 and 1.0, or None. The split
+    route's hit-shading kernel writes these for K4 (ops/cuda/glue.py)."""
+    t_clip = 1.0 if quirks.near_clip_t_le_1 else CLEAN_T_EPS
     order = None
     if reorder:
-        order, live = _sort_rays(o, d, mesh, quirks, live)
+        order, live = _sort_rays(feats[:, 6:9], feats[:, 0:3], mesh, quirks,
+                                 live)
         feats, bound = feats[order], bound[order]
     feats, bound = feats.contiguous(), bound.contiguous()
     if feats.device.type == "cpu":

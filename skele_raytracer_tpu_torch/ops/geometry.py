@@ -21,7 +21,7 @@ unnormalized (the reference never normalizes: SURVEY.md §2.9.3).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -116,8 +116,8 @@ class TriangleHits(NamedTuple):
     t: torch.Tensor  # [R]
     index: torch.Tensor  # [R] int64
     hit: torch.Tensor  # [R] bool
-    u: torch.Tensor  # [R]
-    v: torch.Tensor  # [R]
+    u: Optional[torch.Tensor]  # [R] (None from K3)
+    v: Optional[torch.Tensor]  # [R]
 
 
 def ray_triangle_all(o, d, v0, v1, v2, mask, *, quirks: Quirks):
@@ -201,13 +201,14 @@ class _ReplayTOrKernel(torch.autograd.Function):
         return tuple(out) + (None, None)
 
 
-def replay_t_or_kernel(o, d, tris, index, t_kernel):
-    """`_ReplayTOrKernel` where a gradient is needed; the kernel's t as it
-    is otherwise (a pure render skips the recompute)."""
+def replay_t_or_kernel(o, d, tris, index, t_kernel, hit):
+    """The kernel's t where it hit, through `_ReplayTOrKernel` where a
+    gradient is needed; the kernel's t as it is otherwise (a pure render
+    skips the recompute)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (o, d, tris.v0, tris.v1, tris.v2)):
-        return _ReplayTOrKernel.apply(o, d, tris.v0, tris.v1, tris.v2, index,
-                                      t_kernel)
+        return torch.where(hit, _ReplayTOrKernel.apply(
+            o, d, tris.v0, tris.v1, tris.v2, index, t_kernel), t_kernel)
     return t_kernel
 
 
@@ -249,7 +250,8 @@ class Hits(NamedTuple):
 def _nearest_triangles(o, d, scene, quirks: Quirks, live) -> TriangleHits:
     """The triangle scan, routed as the module docstring says. The
     kernels are forward only: they get gradient-free inputs, and their t
-    reaches rays and vertices through `replay_t_or_kernel`."""
+    reaches rays and vertices through `replay_t_or_kernel`. K3 gives no
+    barycentrics (u, v None)."""
     tr = scene.triangles
     if scene.clusters is not None and scene.clusters.n_clusters > 4:
         from skele_raytracer_tpu_torch.ops.cuda import culled
@@ -260,20 +262,17 @@ def _nearest_triangles(o, d, scene, quirks: Quirks, live) -> TriangleHits:
         t, idx, hit = culled.triangle_nearest_culled(
             o.detach(), d.detach(), mesh, quirks=quirks,
             live=None if live is None else live.detach())
-        zero = torch.zeros_like(t)
+        u = v = None
     elif tr.mask.shape[0] >= 64:
         from skele_raytracer_tpu_torch.ops.cuda import intersect as ik
 
         t, idx, hit, u, v = ik.triangle_nearest(
             o.detach(), d.detach(), tr.v0.detach(), tr.v1.detach(),
             tr.v2.detach(), tr.mask.detach(), quirks=quirks)
-        zero = None
     else:
         return nearest_triangle(o, d, tr.v0, tr.v1, tr.v2, tr.mask,
                                 quirks=quirks)
-    t = torch.where(hit, replay_t_or_kernel(o, d, tr, idx, t), t)
-    if zero is not None:
-        u = v = zero
+    t = replay_t_or_kernel(o, d, tr, idx, t, hit)
     return TriangleHits(t=t, index=idx, hit=hit, u=u, v=v)
 
 

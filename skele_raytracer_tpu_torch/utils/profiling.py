@@ -18,9 +18,12 @@ memory on the profiler's clock, and `torch.profiler` traces of a run.
   module's `LAUNCHES` dict of launch counts, under `launches` by the
   module's name (a replayed CUDA graph adds what its capture launched),
   `scene.clusters_s`, the seconds spent in `ops/accel.build_clusters`,
-  and `wavefront.graph`, the wavefront's chunks by how they ran
+  `wavefront.graph`, the wavefront's chunks by how they ran
   (models/graphs.py): `captures` (graphs captured), `replays` (chunks
-  served by a replay) and `eager` (every other chunk).
+  served by a replay) and `eager` (every other chunk), and
+  `wavefront.shade`, the split route's waves on the card by how their
+  hits were shaded (models/integrator.py): `kernel` (the glue kernels G3
+  and G4 around K4) or `eager` (the tensor code).
 * `k1.records` (`RecordCounts`): what K1's hit records of the last
   training step traced in a take say, per record slot and per light
   kind (ops/cuda/pathtrace.py `record_counts`). The step only keeps a
@@ -280,11 +283,14 @@ def _sum_counts(parts: list) -> dict:
 
 
 # `launches`: {kernel module's name: its LAUNCHES dict}; `wavefront.graph`:
-# the wavefront's chunks, counted by models/graphs.py; `k1.records`: K1's
-# hit records of a traced training step (`RecordCounts`)
+# the wavefront's chunks, counted by models/graphs.py; `wavefront.shade`:
+# the split route's waves on the card by how their hits were shaded
+# (models/integrator.py); `k1.records`: K1's hit records of a traced
+# training step (`RecordCounts`)
 COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {},
                   "wavefront.graph": {"captures": 0, "replays": 0,
                                       "eager": 0},
+                  "wavefront.shade": {"kernel": 0, "eager": 0},
                   "k1.records": RecordCounts()}
 
 

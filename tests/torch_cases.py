@@ -196,6 +196,15 @@ def case_scene_and_config(scene_name, overrides, width, height, device):
     return parsed.to_scene(quirks, device=device), cfg
 
 
+def ulp_gap(a, b):
+    """|a - b| of two float32 tensors in ulps, counted on the ordered
+    integer line of their bits (so -0 and +0 are 0 apart)."""
+    def line(x):
+        i = x.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (line(a) - line(b)).abs()
+
+
 def compare(a, b):
     """(frac_bad, max_abs_err, max mean diff) of two [N, 3] radiances, and
     whether they meet the kernel-vs-plain tolerance."""
