@@ -36,11 +36,13 @@ their replays are ordered on the caller's stream, one chunk at a time,
 and what a graph keeps past its replay is its static buffers and output,
 so the rest of its memory is scratch that the next capture reuses. A
 capture launches nothing, but the wrappers count their launches
-(`COUNTERS["launches"]`) and the split waves their route
-(`COUNTERS["wavefront.shade"]`) as they run: those counts are put back,
-and each replay adds them. The spans inside a chunk (`wave`, `sort`,
-`launch.*`) open only while it is captured; the caller's `chunk` span opens around
-each replay and `launch.graph` around the replay's launch.
+(`COUNTERS["launches"]`), the split waves their route
+(`COUNTERS["wavefront.shade"]`) and a traced Whitted frame its frontier's
+rows (`RECORDER.frontier_rows`) as they run: those counts are put back,
+and each replay adds them. The spans inside a chunk (`wave`,
+`whitted.spawn`, `sort`, `launch.*`) open only while it is captured; the
+caller's `chunk` span opens around each replay and `launch.graph` around
+the replay's launch.
 `COUNTERS["wavefront.graph"]` counts chunks: `captures`, `replays`, and
 `eager` for every chunk the wavefront ran without a replay (a capture's
 warm-up included).
@@ -149,7 +151,8 @@ class ChunkGraphs:
         releasing the device's least recently used graph past CAPACITY."""
         dev = ids.device
         counters = (*profiling.COUNTERS["launches"].values(),
-                    profiling.COUNTERS["wavefront.shade"])
+                    profiling.COUNTERS["wavefront.shade"],
+                    profiling.RECORDER.frontier_rows)
         before = [(c, dict(c)) for c in counters]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(dev):

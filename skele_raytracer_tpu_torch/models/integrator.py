@@ -38,7 +38,9 @@ Clean non-Monte-Carlo frames take the Whitted frontier
 same `_shade_hit` (so K3/K4, K5 or K7 serve each wave) and spawns a
 reflection and a refraction child. The frontier doubles by concatenation
 and is never compacted: children of weight 0 stay in the batch, and the
-kernels skip them through the `live` mask.
+kernels skip them through the `live` mask. In a traced frame
+`COUNTERS["wavefront.whitted"]` counts each depth's rows and the live
+ones among them (utils/profiling.py `count_frontier`).
 """
 
 from __future__ import annotations
@@ -290,6 +292,7 @@ def integrate_whitted(scene, cfg: RenderConfig, seed, o, d, sample_ids):
     weight = torch.ones_like(o)
     total = torch.zeros_like(o)
     ids = sample_ids.to(torch.int64)
+    counting = profiling.counting()
 
     for depth in range(cfg.max_depth):
         live = (weight != 0).any(dim=1).to(torch.float32)
@@ -300,26 +303,30 @@ def integrate_whitted(scene, cfg: RenderConfig, seed, o, d, sample_ids):
         l_local = torch.where(miss[:, None], bg,
                               torch.where(shades[:, None], direct, 0.0))
         total = total + _fold(weight * l_local, C)
+        if counting:
+            profiling.count_frontier(depth, live, shades)
         if depth == cfg.max_depth - 1:
             break
 
-        d_hat = normalize(frontier_d)
-        fr = fresnel(d_hat, hits.normal, mat.ior)
-        has_spec = (mat.specular != 0.0).any(dim=-1) & shades
-        o_refl = offset_origin(hits.point, hits.normal)
-        refl_d = d_hat - 2.0 * dot(d_hat, hits.normal)[:, None] * hits.normal
-        refl_w = (weight * mat.specular * (1.0 - fr)[:, None]
-                  * has_spec[:, None])
-        refr_d = refraction(d_hat, hits.normal, mat.ior)
-        refr_valid = has_spec & (fr < 1.0) & (dot(refr_d, refr_d) > 0)
-        refr_w = weight * fr[:, None] * refr_valid[:, None]
-        # refraction continues on the far side of the surface
-        o_refr = offset_origin(hits.point, hits.normal, sign=-1.0)
+        with profiling.span("whitted.spawn", depth):
+            d_hat = normalize(frontier_d)
+            fr = fresnel(d_hat, hits.normal, mat.ior)
+            has_spec = (mat.specular != 0.0).any(dim=-1) & shades
+            o_refl = offset_origin(hits.point, hits.normal)
+            refl_d = (d_hat
+                      - 2.0 * dot(d_hat, hits.normal)[:, None] * hits.normal)
+            refl_w = (weight * mat.specular * (1.0 - fr)[:, None]
+                      * has_spec[:, None])
+            refr_d = refraction(d_hat, hits.normal, mat.ior)
+            refr_valid = has_spec & (fr < 1.0) & (dot(refr_d, refr_d) > 0)
+            refr_w = weight * fr[:, None] * refr_valid[:, None]
+            # refraction continues on the far side of the surface
+            o_refr = offset_origin(hits.point, hits.normal, sign=-1.0)
 
-        frontier_o = torch.cat([o_refl, o_refr])
-        frontier_d = torch.cat([refl_d, refr_d])
-        weight = torch.cat([refl_w, refr_w])
-        ids = torch.cat([(ids * 2) & _MASK, (ids * 2 + 1) & _MASK])
+            frontier_o = torch.cat([o_refl, o_refr])
+            frontier_d = torch.cat([refl_d, refr_d])
+            weight = torch.cat([refl_w, refr_w])
+            ids = torch.cat([(ids * 2) & _MASK, (ids * 2 + 1) & _MASK])
     return total
 
 

@@ -37,17 +37,28 @@ memory on the profiler's clock, and `torch.profiler` traces of a run.
   csrc/cluster_walk.cuh `count_walk`). A take zeroes the rows with a copy
   from pinned memory (a Memcpy, not a kernel launch); `walk_totals` reads
   them once, after the window.
+* `wavefront.whitted` (`FrontierCounts`): the Whitted frontier of the
+  frames traced in a take, by depth (models/integrator.py
+  `integrate_whitted`, through `count_frontier` under the same gate as
+  the device counters): its rows, counted on the host from the
+  frontier's shapes, and its live rows and the live rows that shade,
+  summed on the device per half of the frontier into FRONTIER_DEPTHS
+  rows beside the walk counters (one zeroing copy for both); a depth's
+  halves are the live reflection and refraction children of the depth
+  above. An untraced frame counts nothing and launches nothing more; the
+  device sums are read at the counter's reads, after the take.
 
 The stages recorded, by layer: `render` (the root of a frame), `k1.tables`
 and `k1.planes` (K1's host packing), `launch.k1` / `k2` / `k3` / `k4` /
 `k7` (a kernel wrapper's checks, operand packing, call and output
-checks), `chunk`, `wave` (its bounce or depth in `arg`) and `sort` (the
+checks), `chunk`, `wave` (its bounce or depth in `arg`), `whitted.spawn`
+(the Whitted frontier's children at a depth, in `arg`) and `sort` (the
 wavefront glue), `train.step` (the root of a step), `train.loss`,
 `train.backward`, `train.mask` and `train.update` (the trainer). Where
 a wavefront chunk replays a CUDA graph, the spans inside it (`wave`,
-`sort`, `launch.k3` / `k4` / `k7`) open only while the graph is
-captured; `chunk` opens around each replay and `launch.graph` around
-the replay's launch.
+`whitted.spawn`, `sort`, `launch.k3` / `k4` / `k7`) open only while the
+graph is captured; `chunk` opens around each replay and `launch.graph`
+around the replay's launch.
 """
 
 from __future__ import annotations
@@ -69,6 +80,10 @@ ROOT_SPANS = ("render", "train.step")  # the items the device counters count
 WALK_KERNELS = ("k3", "k4", "k7")
 WALK_COUNTS = ("rays", "live", "pairs")
 WALK_ROW = len(WALK_KERNELS) * len(WALK_COUNTS)  # int64s per card
+FRONTIER_DEPTHS = 32  # depths of the Whitted frontier that are counted
+# per depth: its live rows and its live rows that shade, each in the
+# frontier's two halves (`count_frontier`)
+FRONTIER_ROW = FRONTIER_DEPTHS * 2 * 2  # int64s per card
 
 _enabled = torch.autograd._profiler_enabled
 
@@ -103,7 +118,12 @@ class Recorder:
         self.on = False  # whether the last span site saw a profiler
         self.take = 0  # takes started so far
         self.next_id = 0
-        self.walk: dict = {}  # card -> [int64 tensor, take it was zeroed in]
+        # card -> [int64 tensor: the walk row, then the frontier's rows;
+        # the take it was zeroed in]
+        self.walk: dict = {}
+        # the Whitted frontier's rows by depth, and the take they count
+        self.frontier_rows = {d: 0 for d in range(FRONTIER_DEPTHS)}
+        self.frontier_take = 0
 
     def open(self, name, arg=None) -> Span:
         if not self.on:
@@ -126,26 +146,41 @@ class Recorder:
         if s in self.stack:
             self.stack.remove(s)
 
-    def walk_row(self, device: torch.device) -> torch.Tensor:
-        """This take's counter rows on `device`. The take's first use
-        zeroes them with a copy from host memory (pinned for a card: a
-        Memcpy, not a kernel launch)."""
+    def counter_rows(self, device: torch.device) -> torch.Tensor:
+        """This take's device counters on `device`: the walk row, then
+        the frontier's rows. The take's first use zeroes them with a copy
+        from host memory (pinned for a card: a Memcpy, not a kernel
+        launch), and the take's first use on any card the frontier's host
+        rows."""
         key = (device.type, device.index)
         if key not in self.walk:
-            self.walk[key] = [torch.empty(WALK_ROW, dtype=torch.int64,
-                                          device=device), 0]
+            self.walk[key] = [torch.empty(WALK_ROW + FRONTIER_ROW,
+                                          dtype=torch.int64, device=device),
+                              0]
         entry = self.walk[key]
         if entry[1] != self.take:
-            zeros = torch.zeros(WALK_ROW, dtype=torch.int64,
+            zeros = torch.zeros(WALK_ROW + FRONTIER_ROW, dtype=torch.int64,
                                 pin_memory=device.type == "cuda")
             entry[0].copy_(zeros, non_blocking=True)
             entry[1] = self.take
+        if self.frontier_take != self.take:
+            # in place: a captured chunk graph adds to this dict
+            for d in self.frontier_rows:
+                self.frontier_rows[d] = 0
+            self.frontier_take = self.take
         return entry[0]
+
+    def walk_row(self, device: torch.device) -> torch.Tensor:
+        """This take's walk row on `device` (`counter_rows`)."""
+        return self.counter_rows(device)[:WALK_ROW]
+
+    def _rows(self):
+        return [t for t, take in self.walk.values() if take == self.take]
 
     def walk_totals(self) -> Optional[dict]:
         """{kernel: {count: total over the cards}} of this take's device
         counters, or None when no kernel counted in it."""
-        rows = [t for t, take in self.walk.values() if take == self.take]
+        rows = [t[:WALK_ROW] for t in self._rows()]
         if not rows:
             return None
         sums = [sum(col) for col in zip(*(t.tolist() for t in rows))]
@@ -205,14 +240,20 @@ def spans() -> list:
     return list(RECORDER.spans)
 
 
+def counting() -> bool:
+    """Whether the device counters count: spans record inside a root
+    span of ROOT_SPANS (a frame or a step)."""
+    if not _enabled():
+        return False
+    stack = RECORDER.stack
+    return bool(stack) and stack[0].name in ROOT_SPANS
+
+
 def walk_counters(device: torch.device, kernel: str) -> Optional[int]:
     """The device address of `kernel`'s (of WALK_KERNELS) counter row on
-    `device` while spans record inside a root span of ROOT_SPANS (a frame
-    or a step), else None (the kernel then counts nothing)."""
-    if not _enabled():
-        return None
-    stack = RECORDER.stack
-    if not (stack and stack[0].name in ROOT_SPANS):
+    `device` while the device counters count (`counting`), else None (the
+    kernel then counts nothing)."""
+    if not counting():
         return None
     row = RECORDER.walk_row(device)
     return row.data_ptr() + row.element_size() * len(WALK_COUNTS) * (
@@ -223,6 +264,24 @@ def walk_totals() -> Optional[dict]:
     """The device counters of the current take: {"k3" | "k4" | "k7":
     {"rays", "live", "pairs": int}}, or None when no kernel counted."""
     return RECORDER.walk_totals()
+
+
+def count_frontier(depth: int, live: torch.Tensor,
+                   shades: torch.Tensor) -> None:
+    """Adds one depth of one chunk's Whitted frontier to
+    `wavefront.whitted` (the caller counts only where `counting`): its
+    rows (live's length) on the host; on the device, the live rows (`live`
+    [R], 1.0 where the row carries weight) and the live rows that shade
+    (`shades` [R] bool), in each half of the frontier (depth 0 is one:
+    its primary rays)."""
+    if depth >= FRONTIER_DEPTHS:
+        return
+    base = RECORDER.counter_rows(live.device)
+    RECORDER.frontier_rows[depth] += live.shape[0]
+    halves = 1 if depth == 0 else 2
+    sums = torch.stack([live, live * shades]).view(2, halves, -1).sum(
+        2, dtype=torch.int64)
+    base[WALK_ROW:].view(FRONTIER_DEPTHS, 2, 2)[depth, :, :halves] += sums
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +330,43 @@ class RecordCounts(Mapping):
         return len(self._reduce())
 
 
+class FrontierCounts(Mapping):
+    """The counter `wavefront.whitted`: {"rows", "live", "shaded",
+    "reflected", "refracted": [count by depth]} of the Whitted frontier
+    over the frames counted in the current take (`count_frontier`): rows,
+    live rows, live rows that shade, and the live reflection and
+    refraction children each depth spawned (the halves of the next
+    depth's live rows; none below the last), read from the device rows at
+    each read; empty when none counted."""
+
+    def _counts(self) -> dict:
+        rows = RECORDER.frontier_rows
+        n = sum(1 for d in rows if rows[d]) if (
+            RECORDER.frontier_take == RECORDER.take) else 0
+        if not n:
+            return {}
+        sums = [0] * FRONTIER_ROW
+        for t in RECORDER._rows():
+            sums = [a + b for a, b in zip(sums, t[WALK_ROW:].tolist())]
+        # per depth: live in each half, then shading in each half
+        live = [sums[4 * d:4 * d + 2] for d in range(n)] + [[0, 0]]
+        return {"rows": [rows[d] for d in range(n)],
+                "live": [sum(live[d]) for d in range(n)],
+                "shaded": [sums[4 * d + 2] + sums[4 * d + 3]
+                           for d in range(n)],
+                "reflected": [live[d + 1][0] for d in range(n)],
+                "refracted": [live[d + 1][1] for d in range(n)]}
+
+    def __getitem__(self, key):
+        return self._counts()[key]
+
+    def __iter__(self):
+        return iter(self._counts())
+
+    def __len__(self):
+        return len(self._counts())
+
+
 def _sum_counts(parts: list) -> dict:
     """The sum of record counts of one step's K1 launches."""
     out = parts[0]
@@ -286,12 +382,14 @@ def _sum_counts(parts: list) -> dict:
 # the wavefront's chunks, counted by models/graphs.py; `wavefront.shade`:
 # the split route's waves on the card by how their hits were shaded
 # (models/integrator.py); `k1.records`: K1's hit records of a traced
-# training step (`RecordCounts`)
+# training step (`RecordCounts`); `wavefront.whitted`: the Whitted
+# frontier of the traced frames (`FrontierCounts`)
 COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {},
                   "wavefront.graph": {"captures": 0, "replays": 0,
                                       "eager": 0},
                   "wavefront.shade": {"kernel": 0, "eager": 0},
-                  "k1.records": RecordCounts()}
+                  "k1.records": RecordCounts(),
+                  "wavefront.whitted": FrontierCounts()}
 
 
 @contextlib.contextmanager
