@@ -79,7 +79,8 @@ __global__ void __launch_bounds__(kT, kB)
                      const float* __restrict__ ci,
                      float* __restrict__ out_r, float* __restrict__ out_g,
                      float* __restrict__ out_b,
-                     int32_t* __restrict__ recs) {
+                     int32_t* __restrict__ recs,
+                     const int64_t* __restrict__ seed_dev) {
   extern __shared__ fm::F4 smem[];
   fm::F4* s_rows = smem;        // [S] scan rows
   fm::F4* s_cam = smem + p.S;   // [S] the camera's rows
@@ -107,8 +108,12 @@ __global__ void __launch_bounds__(kT, kB)
 
   const int i = blockIdx.x * kT + threadIdx.x;
   if (i >= p.n) return;
+  // a replayed graph's launch keeps the p it was captured with: its seed
+  // comes from device memory, written before each replay
+  fm::Params q = p;
+  if (seed_dev != nullptr) q.seed = (uint32_t)*seed_dev;
   float out[3];
-  fm::frame_sample<kRec, kLit, U>(p, tb, fm::MemRows{s_rows}, s_cam,
+  fm::frame_sample<kRec, kLit, U>(q, tb, fm::MemRows{s_rows}, s_cam,
                                   (uint32_t)ids[i], xs[i], ys[i], cj[i],
                                   ci[i], out, recs + i, p.n);
   out_r[i] = out[0];
@@ -120,14 +125,15 @@ using Launch = int (*)(const fm::Params*, const float*, const float*,
                        const float*, const float*, const float*,
                        const int32_t*, const float*, const float*,
                        const float*, const float*, float*, float*, float*,
-                       int32_t*, cudaStream_t);
+                       int32_t*, const int64_t*, cudaStream_t);
 
 template <bool kRec, bool kLit, int U, int kT, int kB>
 int launch(const fm::Params* p, const float* sph, const float* tri,
            const float* misc, const float* pl, const float* dl,
            const int32_t* ids, const float* xs, const float* ys,
            const float* cj, const float* ci, float* out_r, float* out_g,
-           float* out_b, int32_t* recs, cudaStream_t stream) {
+           float* out_b, int32_t* recs, const int64_t* seed_dev,
+           cudaStream_t stream) {
   const auto kernel = pathtrace_kernel<kRec, kLit, U, kT, kB>;
   const size_t smem =
       sizeof(fm::F4) * 2 * (size_t)p->S +
@@ -141,7 +147,8 @@ int launch(const fm::Params* p, const float* sph, const float* tri,
   }
   const int blocks = (p->n + kT - 1) / kT;
   kernel<<<blocks, kT, smem, stream>>>(*p, sph, tri, misc, pl, dl, ids, xs,
-                                       ys, cj, ci, out_r, out_g, out_b, recs);
+                                       ys, cj, ci, out_r, out_g, out_b, recs,
+                                       seed_dev);
   return (int)cudaGetLastError();
 }
 
@@ -154,12 +161,12 @@ int launch_either(const fm::Params* p, const float* sph, const float* tri,
                   const int32_t* ids, const float* xs, const float* ys,
                   const float* cj, const float* ci, float* out_r,
                   float* out_g, float* out_b, int32_t* recs,
-                  cudaStream_t stream) {
+                  const int64_t* seed_dev, cudaStream_t stream) {
   const Launch fn = p->point_on || p->dir_on
                         ? launch<kRec, true, UL, kT, kB>
                         : launch<kRec, false, U, kT, kB>;
   return fn(p, sph, tri, misc, pl, dl, ids, xs, ys, cj, ci, out_r, out_g,
-            out_b, recs, stream);
+            out_b, recs, seed_dev, stream);
 }
 
 }  // namespace
@@ -167,21 +174,25 @@ int launch_either(const fm::Params* p, const float* sph, const float* tri,
 // Launches the kernel on `stream` over p->n samples; allocates nothing and
 // does not synchronise. With `recs` non-null, the records variant also
 // writes the [K, n] int32 hit records (K = 1 + P * (D - 1) with Monte-Carlo
-// depth > 1, else 1). Returns cudaGetLastError() (0 on success).
+// depth > 1, else 1). The stream's seed is `seed_dev`'s low word (a 0-d
+// int64 on the device, read when the kernel runs, so that a CUDA graph's
+// replay draws the seed written before it) or, when that is nullptr,
+// p->seed. Returns cudaGetLastError() (0 on success).
 extern "C" int pathtrace_forward(const fm::Params* p, const float* sph,
                                  const float* tri, const float* misc,
                                  const float* pl, const float* dl,
                                  const int32_t* ids, const float* xs,
                                  const float* ys, const float* cj,
                                  const float* ci, float* out_r, float* out_g,
-                                 float* out_b, int32_t* recs, void* stream) {
+                                 float* out_b, int32_t* recs,
+                                 const int64_t* seed_dev, void* stream) {
   if (p->n <= 0) return (int)cudaGetLastError();
   constexpr int U = fm::SCAN_U, UL = fm::SCAN_U_LIT;
   const Launch fn = recs != nullptr
                         ? launch_either<true, U, UL, kThreads, kMinBlocks>
                         : launch_either<false, U, UL, kThreads, kMinBlocks>;
   return fn(p, sph, tri, misc, pl, dl, ids, xs, ys, cj, ci, out_r, out_g,
-            out_b, recs, (cudaStream_t)stream);
+            out_b, recs, seed_dev, (cudaStream_t)stream);
 }
 
 extern "C" int pathtrace_params_size() { return (int)sizeof(fm::Params); }

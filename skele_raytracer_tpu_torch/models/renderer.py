@@ -8,7 +8,13 @@ reference src/main.cpp:68) into [H, W, 3].
 Two paths, chosen as in the JAX package (`render_ids_chunked`):
 
 * small scenes (spheres and at most 32 decorative triangles) go to the
-  whole-frame path tracer, ops/cuda/pathtrace.py (kernel K1);
+  whole-frame path tracer, ops/cuda/pathtrace.py (kernel K1). On the card
+  without autograd a frame replays a CUDA graph of its whole K1 render
+  (models/graphs.py: the tables, the sample planes, K1 and the stack),
+  keyed on the scene, the config and the ids' length: every whole frame,
+  every equal band of a progressive frame and every card's shard of a
+  sharded one; a new key (a cut last band the first time), autograd
+  (training), CPU tensors and debug output checks run eagerly;
 * everything else (meshes of any size, larger sphere sets, more fog
   volumes) streams through the chunked wavefront: chunks of
   `_chunk_samples` ids -> camera rays -> models/integrator.py, whose
@@ -89,8 +95,8 @@ def render_ids_wavefront(scene, cfg: RenderConfig, seed, sample_ids):
             if graphs.replays(ids.device, grad, ids.shape[0], chunk):
                 if key is None:
                     key = graphs.ChunkGraphs.key(scene, cfg, ids)
-                out.append(graphs.CHUNK_GRAPHS.run(render_ids, key, scene,
-                                                   cfg, seed, ids))
+                out.append(graphs.CHUNK_GRAPHS.run(
+                    graphs.CHUNK, render_ids, key, scene, cfg, seed, ids))
                 continue
             graphs.COUNTS["eager"] += 1
             if grad:
@@ -99,6 +105,22 @@ def render_ids_wavefront(scene, cfg: RenderConfig, seed, sample_ids):
             else:
                 out.append(render_ids(scene, cfg, seed, ids))
     return torch.cat(out)
+
+
+def render_ids_k1(scene, cfg: RenderConfig, seed, sample_ids):
+    """Radiance [N, 3] through the whole-frame kernel K1
+    (`pathtrace.pathtrace_ids`). On the card without autograd it replays
+    the CUDA graph of the frame's scene, config and length
+    (models/graphs.py: a new key runs eagerly, then captures); otherwise
+    it runs eagerly. The card's frames count in COUNTERS["frame.graph"]."""
+    dev = sample_ids.device
+    if graphs.replays(dev, _needs_grad(scene), sample_ids.shape[0]):
+        key = graphs.ChunkGraphs.frame_key(scene, cfg, sample_ids)
+        return graphs.CHUNK_GRAPHS.run(graphs.FRAME, pathtrace.pathtrace_ids,
+                                       key, scene, cfg, seed, sample_ids)
+    if dev.type == "cuda":
+        graphs.FRAME.counts["eager"] += 1
+    return pathtrace.pathtrace_ids(scene, cfg, seed, sample_ids)
 
 
 def render_ids_chunked(scene, cfg: RenderConfig, seed, sample_ids):
@@ -110,11 +132,13 @@ def render_ids_chunked(scene, cfg: RenderConfig, seed, sample_ids):
     dev = torch.device(cfg.device)
     if dev.type == "cuda" and sample_ids.is_cuda:
         dev = sample_ids.device  # a shard's own card (parallel/api.py)
-    scene, sample_ids = scene.to(dev), sample_ids.to(dev)
+    if any(t.device != dev for t in scene.tensors()):
+        scene = scene.to(dev)  # a scene held there already stays as it is
+    sample_ids = sample_ids.to(dev)
     if scene.has_triangles and _needs_grad(scene.triangles):
         scene = with_live_normals(scene)
     if pathtrace.use_pathtrace(scene, cfg):
-        return pathtrace.pathtrace_ids(scene, cfg, seed, sample_ids)
+        return render_ids_k1(scene, cfg, seed, sample_ids)
     return render_ids_wavefront(scene, cfg, seed, sample_ids)
 
 

@@ -995,7 +995,7 @@ def bind(lib):
     """Declares `pathtrace_forward` of a loaded library and checks its
     Params size."""
     lib.pathtrace_forward.argtypes = (
-        [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 15)
+        [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 16)
     lib.pathtrace_forward.restype = ctypes.c_int
     lib.pathtrace_params_size.restype = ctypes.c_int
     if lib.pathtrace_params_size() != ctypes.sizeof(_Params):
@@ -1092,7 +1092,9 @@ def pathtrace_forward(tabs, planes, seed, static: dict, records=False):
     int32 hit records when `records`. CPU tensors run the plain version
     `frame_math_torch`; CUDA tensors launch the kernel (counted in
     LAUNCHES["pathtrace"], or ["pathtrace_records"] for the records
-    variant) or raise."""
+    variant) or raise. `seed`: an int, or a 0-d int64 tensor, which the
+    kernel reads from the device when it runs (a frame's CUDA graph,
+    models/graphs.py, writes each replay's seed there)."""
     check_inputs(tabs, planes, static)
     dev = planes[0].device
     if dev.type == "cpu":
@@ -1106,13 +1108,17 @@ def pathtrace_forward(tabs, planes, seed, static: dict, records=False):
     out = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
     recs = (torch.empty((_static_n_records(static), n), dtype=torch.int32,
                         device=dev) if records else None)
+    seed_dev = None
+    if isinstance(seed, torch.Tensor):
+        seed_dev, seed = seed.to(device=dev, dtype=torch.int64).reshape(()), 0
     params = _params(n, seed, static)
     ptrs = [t.data_ptr() for t in args + out]
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.pathtrace_forward(
             ctypes.byref(params), *ptrs,
-            None if recs is None else recs.data_ptr(), stream)
+            None if recs is None else recs.data_ptr(),
+            None if seed_dev is None else seed_dev.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pathtrace kernel launch failed: CUDA error {err}")
     name = "pathtrace_records" if records else "pathtrace"

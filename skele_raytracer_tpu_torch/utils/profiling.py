@@ -20,7 +20,8 @@ memory on the profiler's clock, and `torch.profiler` traces of a run.
   `scene.clusters_s`, the seconds spent in `ops/accel.build_clusters`,
   `wavefront.graph`, the wavefront's chunks by how they ran
   (models/graphs.py): `captures` (graphs captured), `replays` (chunks
-  served by a replay) and `eager` (every other chunk), and
+  served by a replay) and `eager` (every other chunk), `frame.graph`, the
+  same for whole-frame K1 renders on the card (models/renderer.py), and
   `wavefront.shade`, the split route's waves on the card by how their
   hits were shaded (models/integrator.py): `kernel` (the glue kernels G3
   and G4 around K4) or `eager` (the tensor code).
@@ -58,7 +59,10 @@ wavefront glue), `train.step` (the root of a step), `train.loss`,
 a wavefront chunk replays a CUDA graph, the spans inside it (`wave`,
 `whitted.spawn`, `sort`, `launch.k3` / `k4` / `k7`) open only while the
 graph is captured; `chunk` opens around each replay and `launch.graph`
-around the replay's launch.
+around the replay's launch. Where a K1 frame replays one, `k1.tables`,
+`k1.planes` and the kernel wrapper's `launch.k1` open only while it is
+captured; the replay's launch opens `launch.graph` and, inside it,
+`launch.k1` (it launches K1 once).
 """
 
 from __future__ import annotations
@@ -379,7 +383,8 @@ def _sum_counts(parts: list) -> dict:
 
 
 # `launches`: {kernel module's name: its LAUNCHES dict}; `wavefront.graph`:
-# the wavefront's chunks, counted by models/graphs.py; `wavefront.shade`:
+# the wavefront's chunks, counted by models/graphs.py; `frame.graph`: the
+# whole-frame K1 renders on the card, counted likewise; `wavefront.shade`:
 # the split route's waves on the card by how their hits were shaded
 # (models/integrator.py); `k1.records`: K1's hit records of a traced
 # training step (`RecordCounts`); `wavefront.whitted`: the Whitted
@@ -387,6 +392,7 @@ def _sum_counts(parts: list) -> dict:
 COUNTERS: dict = {"scene.clusters_s": 0.0, "launches": {},
                   "wavefront.graph": {"captures": 0, "replays": 0,
                                       "eager": 0},
+                  "frame.graph": {"captures": 0, "replays": 0, "eager": 0},
                   "wavefront.shade": {"kernel": 0, "eager": 0},
                   "k1.records": RecordCounts(),
                   "wavefront.whitted": FrontierCounts()}

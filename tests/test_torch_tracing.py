@@ -316,6 +316,7 @@ READINGS = {  # metric: value from _record()
     "pairs_per_live_ray.k7": None,  # K7 counted no live ray
     "cluster_build_s": 1.5,
     "graph_share.mesh": 100.0 * 147 / (147 + 3),
+    "graph_share.frame": 100.0 * 201 / (201 + 1),
 }
 
 
@@ -331,6 +332,8 @@ def test_reader_reads_the_record(metric, monkeypatch):
     monkeypatch.setitem(profiling.COUNTERS, "scene.clusters_s", 1.5)
     monkeypatch.setitem(profiling.COUNTERS, "wavefront.graph",
                         {"captures": 2, "replays": 147, "eager": 3})
+    monkeypatch.setitem(profiling.COUNTERS, "frame.graph",
+                        {"captures": 1, "replays": 201, "eager": 1})
     got = _reader(metric)(types.SimpleNamespace(tr=tr))
     want = READINGS[metric]
     assert got == (None if want is None else pytest.approx(want, abs=1e-6))
@@ -343,6 +346,8 @@ def test_reader_without_a_record_gives_none(metric, monkeypatch):
     monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     monkeypatch.setitem(profiling.COUNTERS, "scene.clusters_s", 0.0)
     monkeypatch.setitem(profiling.COUNTERS, "wavefront.graph",
+                        {"captures": 0, "replays": 0, "eager": 0})
+    monkeypatch.setitem(profiling.COUNTERS, "frame.graph",
                         {"captures": 0, "replays": 0, "eager": 0})
     assert _reader(metric)(run) is None
     # an earlier tree's program, which keeps no record
